@@ -1,0 +1,7 @@
+"""PyTorch/CUDA port of the ``repro`` serving path.
+
+Module names follow ``repro`` so each counterpart is easy to find. The
+port imports ``torch`` and numpy only. Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``; prefill attention runs in a
+hand-written CUDA kernel (``kernels/flash_attention``).
+"""

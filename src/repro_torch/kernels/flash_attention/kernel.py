@@ -1,0 +1,72 @@
+"""Wrapper of the hand-written CUDA flash-attention kernel
+(``csrc/flash_attention.cu``), the port's counterpart of
+``flash_attention_tpu``.
+
+CPU tensors go to the plain version (``ref.attention_ref``); CUDA tensors
+launch the kernel or raise. ``launches`` counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+HEAD_DIMS = (32, 64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_GRID_YZ = 65535
+
+launches = 0
+
+
+def _check(q, k, v, window):
+    if any(t.device.type != "cuda" for t in (q, k, v)):
+        raise ValueError("flash_attention_cuda takes CPU tensors (plain "
+                         "version) or CUDA tensors (kernel), got "
+                         f"{q.device}, {k.device}, {v.device}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must lie on one device")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: the "
+                         f"kernel takes one of {DTYPES} for all three")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"shapes {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}: want q (B, Hq, Sq, D) and "
+                         "k, v (B, Hkv, Skv, D)")
+    b, hq, sq, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or k.shape[2] < 1 or sq < 1:
+        raise ValueError("q and k/v disagree in batch or head dim, or a "
+                         "sequence is empty")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the kernel takes {HEAD_DIMS}")
+    if hq % k.shape[1]:
+        raise ValueError(f"{hq} q heads are no multiple of {k.shape[1]} "
+                         "kv heads")
+    if b > MAX_GRID_YZ or hq > MAX_GRID_YZ:
+        raise ValueError(f"batch {b} or heads {hq} exceed the grid limit")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("the head dim must be contiguous (stride 1)")
+    if window < 0:
+        raise ValueError(f"window {window} < 0")
+
+
+def flash_attention_cuda(q, k, v, *, causal=True, window=0):
+    """q (B, Hq, Sq, D); k/v (B, Hkv, Skv, D) -> (B, Hq, Sq, D).
+
+    Any strides with the head dim contiguous: a (B, S, H, D) tensor's
+    ``transpose(1, 2)`` view is read in place. On CUDA the output is
+    allocated as (B, Sq, Hq, D) and returned as its transposed view, so
+    ``.transpose(1, 2)`` gives the model's layout with no copy."""
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return attention_ref(q, k, v, causal=causal, window=window)
+    _check(q, k, v, window)
+    global launches
+    b, hq, sq, d = q.shape
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    ot = out.transpose(1, 2)
+    build.extension().flash_attention_fwd(q, k, v, ot, bool(causal),
+                                          int(window), 1.0 / math.sqrt(d))
+    launches += 1
+    return ot

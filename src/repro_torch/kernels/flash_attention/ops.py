@@ -1,0 +1,15 @@
+"""Public wrapper of the flash-attention kernel in the framework layout.
+
+Takes (B, S, H, D) and hands the kernel ``transpose(1, 2)`` views: the
+kernel reads through strides, so no transposed copy is made (the
+reference's ``ops.py`` materialises three)."""
+from __future__ import annotations
+
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+
+
+def flash_attention(q, k, v, *, causal=True, window=0):
+    """q (B, Sq, Hq, D); k/v (B, Skv, Hkv, D) -> (B, Sq, Hq, D)."""
+    o = flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal=causal, window=window)
+    return o.transpose(1, 2)

@@ -1,0 +1,189 @@
+"""Model configuration dataclasses and the architecture registry.
+
+A copy of ``repro.models.config`` (pure Python, no framework import) with
+one deliberate difference: ``ModelConfig.attn_impl`` defaults to
+``"kernel"``, the hand-written CUDA flash-attention kernel, and the port
+reads it (``models/attention.py:context_attention``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+Kind = Literal["dense", "moe", "ssm", "hybrid", "encdec", "vlm", "audio"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    dense_residual: bool = False      # arctic: dense MLP in parallel with MoE
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2                   # d_inner = expand * d_model
+    conv_width: int = 4
+    chunk: int = 256
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    kind: Kind
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0                 # 0 -> d_model // n_heads
+    moe: MoEConfig | None = None
+    ssm: SSMConfig | None = None
+    # Sliding-window pattern: every `global_every`-th layer is global, others
+    # use a `window`-token local attention (gemma3: 5 local : 1 global).
+    window: int = 0                   # 0 -> full attention everywhere
+    global_every: int = 6
+    # Hybrid (zamba2): mamba blocks with a shared attention block applied
+    # every `shared_attn_every` layers (weights shared across applications).
+    shared_attn_every: int = 0
+    # Encoder-decoder (whisper): number of encoder layers; frontend stub emits
+    # `enc_len` precomputed frame embeddings.
+    n_enc_layers: int = 0
+    enc_len: int = 0
+    # VLM (internvl): first `n_patches` positions come from the vision stub.
+    n_patches: int = 0
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = True
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    # Prefill attention: 'kernel' (the CUDA kernel for CUDA tensors, its
+    # plain version for CPU tensors), 'xla_flash' (chunked plain torch),
+    # 'naive' (O(S^2) oracle, small tests only).
+    attn_impl: str = "kernel"
+    remat: bool = True
+    scan_layers: bool = True
+
+    # ------------------------------------------------------------- derived
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab rounded up to a multiple of 128 (Megatron-style padding);
+        the sampler masks the padding columns."""
+        return ((self.vocab + 127) // 128) * 128
+
+    def is_global_layer(self, i: int) -> bool:
+        if self.window <= 0:
+            return True
+        return (i % self.global_every) == self.global_every - 1
+
+    def layer_window(self, i: int) -> int:
+        """0 means full/global attention for layer i."""
+        return 0 if self.is_global_layer(i) else self.window
+
+    # --------------------------------------------------- parameter counting
+    def param_count(self) -> tuple[int, int]:
+        """(total params, active params) — analytic, matches init."""
+        d, v = self.d_model, self.vocab
+        embed = v * d
+        head = 0 if self.tie_embeddings else v * d
+        total = embed + head + d  # final norm
+        active = total
+
+        def attn_params() -> int:
+            return d * (self.n_heads * self.hd) + 2 * d * (self.n_kv_heads * self.hd) \
+                + (self.n_heads * self.hd) * d + 2 * d  # qkv, o, 2 norms
+
+        def mlp_params(ff: int) -> int:
+            return 3 * d * ff  # SwiGLU: gate, up, down
+
+        def ssm_params() -> int:
+            s = self.ssm
+            di = s.d_inner(d)
+            nh = s.n_heads(d)
+            # in_proj (x, z, B, C, dt), conv, A, D, dt_bias, norm, out_proj
+            in_proj = d * (2 * di + 2 * s.d_state + nh)
+            return in_proj + s.conv_width * (di + 2 * s.d_state) + 3 * nh + di \
+                + di * d + d
+
+        if self.kind == "ssm":
+            total += self.n_layers * ssm_params()
+            active = total
+            return total, active
+
+        if self.kind == "hybrid":
+            per = ssm_params()  # the MLP lives in the shared block only
+            total += self.n_layers * per
+            if self.shared_attn_every:
+                total += attn_params() + mlp_params(self.d_ff)
+            active = total
+            return total, active
+
+        per_dense = attn_params() + mlp_params(self.d_ff)
+        if self.kind in ("encdec", "audio"):
+            # encoder blocks + decoder blocks with cross attention + enc norm
+            cross = attn_params() - 2 * d + d  # cross qkv/o + its norm
+            total += self.n_enc_layers * per_dense \
+                + self.n_layers * (per_dense + cross) + d
+            return total, total
+        if self.moe is None:
+            total += self.n_layers * per_dense
+            return total, total
+
+        m = self.moe
+        router = d * m.n_experts
+        expert = 3 * d * m.d_ff_expert
+        per_moe = attn_params() + router + m.n_experts * expert
+        per_moe_active = attn_params() + router + m.top_k * expert
+        if m.dense_residual:
+            per_moe += mlp_params(self.d_ff)
+            per_moe_active += mlp_params(self.d_ff)
+        total += self.n_layers * per_moe
+        active = embed + head + d + self.n_layers * per_moe_active
+        return total, active
+
+
+_REGISTRY: dict[str, ModelConfig] = {}
+_SMOKE: dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig, smoke: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    _SMOKE[cfg.name] = smoke
+    return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    _ensure_loaded()
+    return _REGISTRY[name]
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    _ensure_loaded()
+    return _SMOKE[name]
+
+
+def list_archs() -> list[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
+def _ensure_loaded() -> None:
+    if _REGISTRY:
+        return
+    # Importing repro_torch.configs registers every ported architecture.
+    import repro_torch.configs  # noqa: F401

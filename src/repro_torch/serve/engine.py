@@ -1,0 +1,257 @@
+"""Continuous-batching serving engine over ``Model.decode_step``, the
+port's counterpart of ``repro.serve.engine``.
+
+A fixed pool of B slots shares one batched decode cache whose ``pos`` is
+per-slot: every lane tracks its own position, so a waiting request is
+admitted mid-run by resetting only the freed slot's cache lane
+(``Model.reset_cache_lane``) while the other lanes keep decoding, and the
+admitted request's tokens are the ones it would get served alone. Prompts
+stream in token by token through the same ``decode_step``
+(prefill-as-decode); completed slots free up and re-admit from the
+arrival queue every step. Greedy sampling. The cache is updated in place
+(the reference donates it to a jitted step).
+
+Deadlines: a request may carry ``deadline_s``; a queued request that can
+no longer finish by it at the engine's step time is rejected. The
+reference's deadline-safe admission planner (``planner=``) needs the
+energy stack, which the port has not carried across yet: passing one
+raises.
+
+Clocks: the wall clock by default; with a :class:`SimClock` every step
+advances it by ``step_time_s`` exactly.
+
+Observability (optional, duck-typed): a ``tracer`` with ``enabled``,
+``complete``, ``counter`` and ``instant``, and a ``metrics`` registry with
+``observe``, ``set_gauge`` and ``inc`` get the reference's ``serve/*``
+spans, counters and histograms.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from collections import deque
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.transformer import Model
+
+
+def step_need_s(deadline_s: float, now_s: float, steps_remaining: int,
+                safety: float = 1.0) -> float:
+    """The slowest admissible per-step latency (seconds) for a request
+    needing ``steps_remaining`` more engine steps by ``deadline_s``,
+    derated by ``safety``. Non-positive when the deadline already
+    passed."""
+    if steps_remaining <= 0:
+        return math.inf
+    return (deadline_s - now_s) / (steps_remaining * safety)
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: list[int]
+    max_new_tokens: int = 16
+    deadline_s: float | None = None    # absolute engine-clock deadline
+    arrival_s: float | None = None     # stamped by submit() if None
+    out: list[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    rejected: bool = False             # dropped by admission control
+    missed: bool = False               # finished past its deadline
+    admitted_s: float | None = None
+    finished_s: float | None = None
+
+    @property
+    def total_steps(self) -> int:
+        """Engine steps from admission to completion: the prompt streams
+        through decode (len(prompt) steps, the last of which emits the
+        first output token) plus max_new_tokens - 1 further steps."""
+        return len(self.prompt) + self.max_new_tokens - 1
+
+
+class SimClock:
+    """Deterministic engine clock for scenario runs and property tests."""
+
+    def __init__(self, t0: float = 0.0):
+        self.t = float(t0)
+
+    def now(self) -> float:
+        return self.t
+
+    def advance(self, dt: float) -> None:
+        self.t += dt
+
+
+class ServeEngine:
+    def __init__(self, model: Model, params, batch_slots: int = 4,
+                 max_len: int = 256, tracer=None, metrics=None,
+                 clock: SimClock | None = None, planner=None,
+                 step_time_s: float | None = None):
+        if planner is not None:
+            raise NotImplementedError(
+                "deadline-safe admission (planner=) needs the energy stack, "
+                "not ported yet (ROADMAP Queue A item 9)")
+        self.model = model
+        self.params = params
+        self.device = params["embed"].device
+        self.B = batch_slots
+        self.max_len = max_len
+        self.tracer = tracer
+        self.metrics = metrics
+        self.clock = clock
+        self.step_time_s = step_time_s  # sim-clock seconds per step
+        self.last_step_s = 0.0
+        self.cache = model.init_cache(batch_slots, max_len,
+                                      device=self.device)
+        self.queue: deque[Request] = deque()
+        self.rejected: list[Request] = []
+        self.slots: list[Optional[Request]] = [None] * batch_slots
+        # per-slot prompt tokens still to stream through decode
+        self._pending: list[list[int]] = [[] for _ in range(batch_slots)]
+
+    # ------------------------------------------------------------- clocking
+    def now(self) -> float:
+        return self.clock.now() if self.clock is not None \
+            else time.perf_counter()
+
+    def _planned_step_s(self) -> float:
+        return self.step_time_s if self.step_time_s is not None else 0.0
+
+    # ------------------------------------------------------------ admission
+    def submit(self, req: Request) -> None:
+        if req.arrival_s is None:
+            req.arrival_s = self.now()
+        self.queue.append(req)
+
+    def _steps_remaining(self, i: int) -> int:
+        req = self.slots[i]
+        pend = len(self._pending[i])
+        emit_left = req.max_new_tokens - len(req.out)
+        # the step that consumes the last prompt token also emits
+        return pend + emit_left - (1 if pend else 0)
+
+    def min_step_need_s(self) -> float:
+        """The tightest admissible step latency over every admitted and
+        queued deadline."""
+        now = self.now()
+        needs = [step_need_s(req.deadline_s, now, self._steps_remaining(i))
+                 for i, req in enumerate(self.slots)
+                 if req is not None and req.deadline_s is not None]
+        needs += [step_need_s(req.deadline_s, now, req.total_steps)
+                  for req in self.queue if req.deadline_s is not None]
+        return min(needs) if needs else math.inf
+
+    def _reject(self, req: Request) -> None:
+        req.rejected = True
+        req.done = True
+        self.rejected.append(req)
+        if self.metrics is not None:
+            self.metrics.inc("serve/rejected")
+        if self.tracer is not None and self.tracer.enabled:
+            self.tracer.instant("serve/rejected", cat="serve",
+                                args={"rid": req.rid})
+
+    def _expired(self, req: Request, now: float) -> bool:
+        """A queued request that can no longer finish by its deadline at
+        the engine's step time."""
+        if req.deadline_s is None:
+            return False
+        best = self._planned_step_s()
+        return now + req.total_steps * best > req.deadline_s + 1e-12
+
+    def _admit(self) -> None:
+        now = self.now()
+        free = [i for i, s in enumerate(self.slots) if s is None]
+        while self.queue and free:
+            req = self.queue.popleft()
+            if self._expired(req, now):
+                self._reject(req)
+                continue
+            i = free.pop(0)
+            self.model.reset_cache_lane(self.cache, i)
+            self.slots[i] = req
+            self._pending[i] = list(req.prompt)
+            req.admitted_s = now
+
+    # ----------------------------------------------------------------- step
+    def step(self) -> None:
+        """One engine step = one decode_step over the slot batch."""
+        t0 = time.perf_counter()
+        self._admit()
+        active = sum(1 for s in self.slots if s is not None)
+        tokens = np.zeros((self.B,), np.int32)
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            if self._pending[i]:
+                tokens[i] = self._pending[i].pop(0)
+            elif req.out:
+                tokens[i] = req.out[-1]
+            else:
+                tokens[i] = req.prompt[-1]
+        nxt, self.cache = self.model.decode_step(
+            self.params, self.cache, torch.from_numpy(tokens).to(self.device))
+        nxt = nxt.cpu().numpy()
+        t1 = time.perf_counter()
+        if self.clock is not None:
+            dt = self._planned_step_s()
+            self.clock.advance(dt)
+        else:
+            dt = t1 - t0
+        self.last_step_s = dt
+        now = self.now()
+        emitted = completed = missed = 0
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            if self._pending[i]:
+                continue  # still prefills; ignore logits
+            req.out.append(int(nxt[i]))
+            emitted += 1
+            if len(req.out) >= req.max_new_tokens:
+                req.done = True
+                req.finished_s = now
+                completed += 1
+                if req.deadline_s is not None and now > req.deadline_s \
+                        + 1e-12:
+                    req.missed = True
+                    missed += 1
+                self.slots[i] = None
+        tracer = self.tracer
+        if tracer is not None and tracer.enabled:
+            tracer.complete("serve/step", t0, t1 - t0, cat="serve",
+                            args={"active": active, "tokens": emitted})
+            tracer.counter("serve/active_slots", active)
+            tracer.counter("serve/queue_depth", len(self.queue))
+            if missed:
+                tracer.instant("serve/deadline_miss", cat="serve",
+                               args={"count": missed})
+        metrics = self.metrics
+        if metrics is not None:
+            metrics.observe("serve/step_s", dt)
+            metrics.set_gauge("serve/queue_depth", float(len(self.queue)))
+            if emitted:
+                metrics.inc("serve/tokens", emitted)
+            if completed:
+                metrics.inc("serve/requests_done", completed)
+            if missed:
+                metrics.inc("serve/deadline_miss", missed)
+
+    def run_until_idle(self, max_steps: int = 10_000) -> None:
+        """Step until the queue and every slot are empty; waiting requests
+        are admitted mid-run into freed slots."""
+        for _ in range(max_steps):
+            if not any(s is not None for s in self.slots):
+                # nothing active: drop queued requests that already expired
+                # so an infeasible backlog terminates instead of spinning
+                now = self.now()
+                self.queue = deque(
+                    r for r in self.queue
+                    if not (self._expired(r, now) and
+                            (self._reject(r) or True)))
+                if not self.queue:
+                    return
+            self.step()

@@ -1,0 +1,147 @@
+"""The port's serving engine against the JAX reference's on the CPU: the same
+requests give the same tokens in fp32, mid-run admission is exact, a reused
+slot starts clean, and deadline handling and observability match."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+torch.backends.cuda.matmul.allow_tf32 = False
+
+import jax  # noqa: E402
+
+from repro.models.config import get_smoke_config as jax_smoke  # noqa: E402
+from repro.models.transformer import Model as JaxModel  # noqa: E402
+from repro.obs import MetricsRegistry, Tracer  # noqa: E402
+from repro.serve import Request as JaxRequest  # noqa: E402
+from repro.serve import ServeEngine as JaxEngine  # noqa: E402
+from repro.serve import SimClock as JaxClock  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.models.config import get_smoke_config  # noqa: E402
+from repro_torch.models.transformer import Model  # noqa: E402
+from repro_torch.serve import Request, ServeEngine, SimClock, step_need_s  # noqa: E402
+
+ARCHS = ["stablelm-3b", "phi3-medium-14b"]
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def models(request):
+    """(jax model, jax params, port model, port params) for one arch."""
+    jm = JaxModel(jax_smoke(request.param))
+    jp = jm.init(0)
+    cfg = get_smoke_config(request.param)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    return jm, jp, Model(cfg), tp
+
+
+def _serve(engine_cls, req_cls, model, params, specs, slots, **kw):
+    engine = engine_cls(model, params, batch_slots=slots, max_len=64, **kw)
+    reqs = [req_cls(rid=i, prompt=p, max_new_tokens=n)
+            for i, (p, n) in enumerate(specs)]
+    for r in reqs:
+        engine.submit(r)
+    engine.run_until_idle()
+    return engine, reqs
+
+
+def _solo(model, params, prompt, n_new):
+    return _serve(ServeEngine, Request, model, params, [(prompt, n_new)],
+                  1)[1][0].out
+
+
+def test_engine_matches_reference_engine(models):
+    """Five requests through two slots (so three are admitted mid-run into
+    freed slots): the port's tokens equal the reference engine's."""
+    jm, jp, tm, tp = models
+    rng = np.random.default_rng(0)
+    specs = [(rng.integers(0, 256, n).tolist(), m)
+             for n, m in ((3, 5), (6, 2), (2, 7), (4, 4), (5, 3))]
+    _, ours = _serve(ServeEngine, Request, tm, tp, specs, 2)
+    _, ref = _serve(JaxEngine, JaxRequest, jm, jp, specs, 2)
+    assert [r.out for r in ours] == [r.out for r in ref]
+    assert all(r.done and len(r.out) == n for r, (_, n) in zip(ours, specs))
+
+
+@pytest.mark.parametrize("offset", [1, 3, 6])
+def test_mid_run_admission_byte_identical(models, offset):
+    """A request admitted while another is mid-decode produces exactly the
+    tokens it would produce served alone (and the reference's)."""
+    jm, jp, tm, tp = models
+    long = Request(rid=0, prompt=[5, 9, 2, 4], max_new_tokens=12)
+    late = Request(rid=1, prompt=[7, 1, 3], max_new_tokens=5)
+    engine = ServeEngine(tm, tp, batch_slots=2, max_len=64)
+    engine.submit(long)
+    for _ in range(offset):          # the long request runs alone first...
+        engine.step()
+    engine.submit(late)              # ...then the late one joins mid-run
+    engine.run_until_idle()
+    assert long.out == _solo(tm, tp, long.prompt, long.max_new_tokens)
+    assert late.out == _solo(tm, tp, late.prompt, late.max_new_tokens)
+    _, (jlate,) = _serve(JaxEngine, JaxRequest, jm, jp, [(late.prompt, 5)], 1)
+    assert late.out == jlate.out
+
+
+def test_slot_reuse_resets_lane(models):
+    """A slot freed by a finished request and re-used by a later one does
+    not leak stale cache state into the newcomer's tokens."""
+    _, _, tm, tp = models
+    engine, (a, b) = _serve(ServeEngine, Request, tm, tp,
+                            [([5, 9], 3), ([7, 1, 3], 4)], 1)
+    assert a.done and b.done
+    assert b.out == _solo(tm, tp, b.prompt, b.max_new_tokens)
+    assert engine.cache["pos"].tolist() == [3 + 4 - 1]
+
+
+def test_planner_raises():
+    tm = Model(get_smoke_config("stablelm-3b"))
+    tp = tm.init(0, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A"):
+        ServeEngine(tm, tp, planner=object())
+
+
+def test_deadlines_on_sim_clock_match_reference(models):
+    """Without a planner both engines reject a queued request that can no
+    longer meet its deadline at the fixed step time, on the deterministic
+    clock, and admit the others."""
+    jm, jp, tm, tp = models
+
+    def run(engine_cls, req_cls, clock_cls, model, params):
+        engine = engine_cls(model, params, batch_slots=1, max_len=64,
+                            clock=clock_cls(), step_time_s=0.5)
+        reqs = [req_cls(rid=0, prompt=[1, 2], max_new_tokens=3,
+                        deadline_s=2.5),
+                req_cls(rid=1, prompt=[3], max_new_tokens=2, deadline_s=1.0),
+                req_cls(rid=2, prompt=[4, 5], max_new_tokens=2,
+                        deadline_s=100.0)]
+        for r in reqs:
+            engine.submit(r)
+        engine.run_until_idle()
+        return engine, [(r.out, r.done, r.rejected, r.missed, r.finished_s)
+                        for r in reqs]
+
+    ours, got = run(ServeEngine, Request, SimClock, tm, tp)
+    _, want = run(JaxEngine, JaxRequest, JaxClock, jm, jp)
+    assert got == want
+    assert [g[2] for g in got] == [False, True, False]
+    assert not any(g[3] for g in got)
+    assert [g[4] for g in got] == [2.0, None, 3.5]
+    assert ours.clock.now() == pytest.approx(0.5 * (4 + 3))
+    assert step_need_s(3.0, 1.0, 4) == 0.5
+    assert ours.min_step_need_s() == float("inf")
+
+
+def test_engine_emits_trace_and_metrics():
+    tm = Model(get_smoke_config("stablelm-3b"))
+    tp = tm.init(0, device="cpu")
+    tracer, metrics = Tracer(), MetricsRegistry()
+    _serve(ServeEngine, Request, tm, tp, [([1, 2], 3), ([2, 3], 3)], 2,
+           tracer=tracer, metrics=metrics)
+    events = tracer.drain()
+    steps = [e for e in events if e.name == "serve/step"]
+    assert steps and all(e.ph == "X" and e.cat == "serve" for e in steps)
+    assert steps[0].args["active"] == 2
+    assert any(e.name == "serve/active_slots" for e in events)
+    assert metrics.counter("serve/tokens") == 6
+    assert metrics.counter("serve/requests_done") == 2
+    hist = metrics.snapshot()["histograms"]["serve/step_s"]
+    assert hist["count"] == len(steps) and hist["p99"] > 0
