@@ -5,8 +5,9 @@ Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a
 machine with a CUDA GPU (Hopper, ``sm_90a``).
 
 Phases, each printing one JSON line:
-  build   : compile the CUDA kernels from the checkout's sources, timed,
-            with the compiler's output (ptxas registers and spills).
+  build   : compile the CUDA kernels (flash attention, chunked two-pass
+            attention, SSD scan) from the checkout's sources, timed, with
+            the compiler's output (ptxas registers and spills).
   kernel  : the flash-attention kernel against its plain version
             (``attention_ref``) on the six reference cases in fp32 (2e-5)
             and bf16 (2e-2) and at phi3-medium-14b's prefill shape; kernel,
@@ -25,6 +26,30 @@ Phases, each printing one JSON line:
             must equal its solo run.
   profile : a torch.profiler trace of one prefill and four decode steps:
             device busy time, idle share, top kernels.
+Then phi3's 28 GB are freed and zamba2-7b (Mamba2 + shared attention) runs:
+  attention_kernels : the chunked two-pass kernel against ``attention_ref``
+            on the six reference cases (2e-5 / 2e-2), both attention
+            kernels at zamba2's shared-attention shape (head dim 112);
+            kernel, plain and library times and the bound.
+  ssd_kernel : the SSD kernel against ``ssd_ref_sequential`` on the four
+            reference cases (fp32 1e-4, bf16 5e-2) and at zamba2's and
+            mamba2-1.3b's full-width layer shapes (y 1e-2 and state 1e-3
+            relative max-norm); kernel and plain times and the bound.
+  prefill : zamba2-7b at full width and depth, bf16, seeded random
+            weights: 4 x 2048 tokens, exactly 81 SSD and 13 flash
+            launches, and with ``attn_impl="chunked"`` exactly 13 chunked
+            ones. The last hidden state and every cache leaf (conv, state,
+            k_shared, v_shared, conv_tail, state_tail) of both, and of the
+            plain prefill (plain chunked attention, blocked plain SSD),
+            against an fp32 prefill: each within 1.5x the plain path's
+            error. The same two prefills in fp32 against the plain fp32
+            one at 2e-3. A control whose SSD drops the carry between
+            chunks must fail both gates. Two more plain bf16 paths
+            (naive attention; the scan's output rounded to bf16) are
+            logged beside them, the size of bf16's own noise.
+  decode, serve, profile : as for phi3; request 0's solo run has the
+            same four slots, and in fp32 its solo runs with one and with
+            four slots must agree (see ``phase_serve``).
 Then the card's name and power limit, one JSON line of kernel records,
 and the result line. Any failure raises and exits non-zero; without a
 CUDA device it exits 1 before any phase.
@@ -33,6 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -43,11 +69,15 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import chunked as ca  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
-from repro_torch.models import attention, embedloss, transformer  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_ref_sequential  # noqa: E402
+from repro_torch.models import attention, embedloss, ssm, transformer  # noqa: E402
 from repro_torch.models.config import get_config  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
@@ -77,6 +107,48 @@ PREFILL_REL_TOL = 5e-2
 # an H100 the sound kernel reads 2.2e-2 and the control (causal mask one
 # key ahead) 1.23, 0.44 over the late half of the positions
 KV_REL_TOL = 5e-2
+# zamba2-7b's shared-attention prefill: batch, q heads, kv heads, prompt,
+# head dim (3584 / 32 = 112)
+ZAMBA_ATTN = (4, 32, 32, 2048, 112)
+# the SSD layer shapes at full width (batch, prompt; heads, head dim, state
+# and chunk come from each config)
+SSD_ARCHS = ("zamba2-7b", "mamba2-1.3b")
+SSD_BATCH, SSD_LEN = 4, 2048
+# b, l, h, p, n, chunk (tests/test_kernels.py test_ssd_kernel)
+SSD_CASES = [
+    (2, 64, 4, 16, 8, 16),
+    (1, 100, 2, 32, 16, 32),
+    (2, 37, 3, 8, 8, 64),
+    (1, 128, 1, 64, 32, 128),
+]
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# relative max-norm limits of the kernel at the full-width shapes against
+# its plain version on the same bf16 inputs: y is rounded to bf16 (2^-8 =
+# 3.9e-3 of its largest entries), the state stays fp32
+SSD_Y_REL_TOL, SSD_STATE_REL_TOL = 1e-2, 1e-3
+# zamba2's prefill through 81 Mamba2 layers and 13 shared-attention
+# applications in bf16 is 8.5e-2 to 1.1e-1 (last hidden state, relative
+# max-norm) from an fp32 prefill of the same weights on every path, the
+# plain one included, and two plain paths that round attention at other
+# places differ by 5.8e-2 (the logged paths of phase_zamba_prefill, NVIDIA
+# H100 80GB HBM3, 700 W): below that noise floor a bf16-against-bf16 limit
+# cannot tell a sound kernel from a faulty one. So each bf16 path is held
+# against the fp32 prefill, to within BF16_RATIO_TOL times the plain bf16
+# path's own error there (on the same card the sound paths read 0.81-1.33,
+# the dropped-carry control 6.3-15.3; seeded data and deterministic
+# kernels read the same on every run); and the same prefill in fp32,
+# through the fp32 kernels, is held against the plain fp32 prefill at
+# FP32_REL_TOL, on the last hidden state and every cache leaf's per-vector
+# relative L2 (the sound paths read 4.7e-5 to 2.2e-4, the control 0.53 to
+# 6.4; the limit is ~10x the sound maximum)
+BF16_RATIO_TOL = 1.5
+FP32_REL_TOL = 2e-3
+# trailing dims of each zamba2 cache leaf that form one gated vector: K/V
+# per (layer, lane, position) over Hkv x hd; conv inputs per (layer, lane,
+# position) over di + 2N; SSM states per (layer, lane, head) over P x N
+LEAF_VEC_DIMS = {"k_shared": 2, "v_shared": 2, "conv": 1, "conv_tail": 1,
+                 "state": 2, "state_tail": 2}
+PLAIN_REPS_SLOW = 5              # the sequential SSD recurrence, 2048 steps
 # dense bf16 tensor-core FLOP/s and HBM bytes/s of the one card this script
 # knows (NVIDIA's data sheet, SXM part, 700 W); any other card is refused
 PEAKS = {"NVIDIA H100 80GB HBM3": (989e12, 3.35e12)}
@@ -172,23 +244,43 @@ def phase_kernel(gen, peaks: tuple[float, float]) -> dict:
     ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True))
     plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=True), reps=20)
     lib_ms = library_ms(q, k, v)
-    flops = 2 * b * hq * s * s * d               # causal: half of 4 B H S^2 D
-    nbytes = 2 * b * s * (2 * hq + 2 * hkv) * d  # q, o, k, v in bf16
-    peak_flops, peak_bw = peaks
-    t_ops, t_bytes = flops / peak_flops, nbytes / peak_bw
-    rec = {"name": "flash_attention", "route": "cuda",
-           "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                     "flash_attention.cu",
-           "replaces": "src/repro/kernels/flash_attention/kernel.py:109",
-           "launches": None, "max_abs_err": err, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "library_ms": lib_ms}
+    flops, nbytes = attn_work(b, hq, hkv, s, d)
+    rec = kernel_record("flash_attention", "flash_attention/csrc/"
+                        "flash_attention.cu", "flash_attention/kernel.py:109",
+                        err, ms, plain_ms, lib_ms, flops, nbytes, peaks)
     log(phase="kernel", cases=len(errs), max_abs_err_cases=errs,
         shape=list(PHI3_ATTN), dtype="bfloat16", causal=True,
         tflops=flops / ms / 1e9, **{k: v for k, v in rec.items()
                                     if k != "launches"})
     return rec
+
+
+def attn_work(b, hq, hkv, s, d) -> tuple[int, int]:
+    """(flops, bytes) of causal prefill attention: half of 4 B H S^2 D
+    multiply-adds; q, o, k, v each moved once in bf16."""
+    return 2 * b * hq * s * s * d, 2 * b * s * (2 * hq + 2 * hkv) * d
+
+
+def bound(flops, nbytes, peaks) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the
+    operations over the bf16 tensor-core peak and the bytes over the
+    memory rate, and which of the two it is."""
+    t_ops, t_bytes = flops / peaks[0], nbytes / peaks[1]
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def kernel_record(name, source, replaces, err, ms, plain_ms, lib_ms, flops,
+                  nbytes, peaks) -> dict:
+    """One entry of the kernels line; ``launches`` is filled in by the main
+    path's run."""
+    bound_ms, bound_by = bound(flops, nbytes, peaks)
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/" + source,
+            "replaces": "src/repro/kernels/" + replaces,
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms}
 
 
 def kv_rel_err(cache, ref, s: int) -> tuple[float, float, int]:
@@ -230,13 +322,14 @@ def phase_prefill(gen, rec: dict):
     params = model.init(seed=SEED, device=DEVICE)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_only_peak = torch.cuda.max_memory_allocated()
     b, _, _, s, _ = PHI3_ATTN
     tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=DEVICE)
     batch = {"tokens": tokens}
     model.prefill(params, batch, CACHE_LEN)          # warm-up
     torch.cuda.synchronize()
-    # init draws each leaf in fp32 before the cast: its largest leaf's
-    # draw sets the run's peak, so the prefill's own peak is read apart
+    # the peak of init and the warm-up prefill; the timed prefill's own
+    # peak is read apart
     init_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
 
@@ -286,11 +379,12 @@ def phase_prefill(gen, rec: dict):
         kv_rel_err_limit=KV_REL_TOL, control_kv_rel_err=ctrl_kv,
         control_kv_rel_err_late_half=ctrl_kv_late,
         init_peak_mem_gb=init_peak / 1e9,
+        init_only_peak_mem_gb=init_only_peak / 1e9,
         prefill_peak_mem_gb=prefill_peak / 1e9)
     return cfg, model, params, cache, last
 
 
-def phase_decode(cfg, model, params, cache, last) -> None:
+def phase_decode(cfg, model, params, cache, last, prompt: int) -> None:
     tok = embedloss.greedy(last, params["embed"], valid_vocab=cfg.vocab)
     toks, times = [tok], []
     for _ in range(DECODE_STEPS):
@@ -303,14 +397,39 @@ def phase_decode(cfg, model, params, cache, last) -> None:
     toks = torch.stack(toks, dim=1)
     require(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
             "a decoded token outside the vocab")
-    require(bool((cache["pos"] == PHI3_ATTN[3] + DECODE_STEPS).all()),
+    require(bool((cache["pos"] == prompt + DECODE_STEPS).all()),
             "cache positions after decode")
-    log(phase="decode", batch=toks.shape[0], steps=DECODE_STEPS,
+    log(phase="decode", arch=cfg.name, batch=toks.shape[0],
+        steps=DECODE_STEPS,
         step_ms_p50=statistics.median(times) * 1e3,
         step_ms_max=max(times) * 1e3, tokens=toks[0].tolist())
 
 
-def phase_serve(gen, cfg, model, params) -> None:
+def solo_tokens(model, params, prompt, slots: int) -> list[int]:
+    """Request 0 served alone by an engine of ``slots`` slots."""
+    solo = ServeEngine(model, params, batch_slots=slots, max_len=128)
+    alone = Request(rid=0, prompt=prompt, max_new_tokens=16)
+    solo.submit(alone)
+    solo.run_until_idle()
+    return alone.out
+
+
+def first_diff(a, b):
+    """The first index where two token lists differ, or None."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def phase_serve(gen, cfg, model, params, solo_slots: int = 1) -> None:
+    """Six requests through four slots. Request 0 must get the tokens it
+    gets served alone by an engine of ``solo_slots`` slots: 1 for phi3;
+    4 for zamba2, whose bf16 forward turns the different rounding of
+    cuBLAS's M=1 and M=4 GEMMs into other greedy tokens within a few steps
+    (the 1-slot comparison is logged beside it), while with four slots in
+    both runs lane 0's rows meet the same kernels and only a leak from the
+    other lanes' admissions and resets can change its tokens. For zamba2
+    the same solo runs in fp32, where that rounding is 2^16 times finer,
+    must agree between one and four slots, so that a fault of one slot
+    alone cannot hide behind the rounding."""
     lens = torch.randint(32, 65, (6,), generator=gen, device=DEVICE).tolist()
     prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen,
                              device=DEVICE).tolist() for n in lens]
@@ -336,16 +455,31 @@ def phase_serve(gen, cfg, model, params) -> None:
     mid_run = [r.rid for r in reqs if r.rid not in first_admit]
     require(mid_run, "no request was admitted mid-run")
 
-    solo = ServeEngine(model, params, batch_slots=1, max_len=128)
-    alone = Request(rid=0, prompt=prompts[0], max_new_tokens=16)
-    solo.submit(alone)
-    solo.run_until_idle()
-    require(alone.out == reqs[0].out,
-            "the first request's tokens differ from its solo run")
-    log(phase="serve", requests=len(reqs), prompt_lens=lens, steps=steps,
+    extra = {}
+    if solo_slots != 1:
+        one = solo_tokens(model, params, prompts[0], 1)
+        extra["one_slot_solo_equal"] = one == reqs[0].out
+        extra["one_slot_solo_first_diff"] = first_diff(one, reqs[0].out)
+        m32 = Model(dataclasses.replace(cfg, param_dtype="float32",
+                                        compute_dtype="float32"))
+        p32 = fp32_params(params)
+        one32, four32 = (solo_tokens(m32, p32, prompts[0], n)
+                         for n in (1, solo_slots))
+        del p32
+        extra["fp32_one_slot_solo_first_diff"] = first_diff(one32, four32)
+        extra["fp32_solo_tokens"] = four32
+        require(one32 == four32,
+                f"fp32 solo runs with 1 and {solo_slots} slots part at "
+                f"token {extra['fp32_one_slot_solo_first_diff']}")
+    require(solo_tokens(model, params, prompts[0], solo_slots)
+            == reqs[0].out,
+            f"the first request's tokens differ from its solo run "
+            f"({solo_slots} slots)")
+    log(phase="serve", arch=cfg.name, requests=len(reqs), prompt_lens=lens,
+        steps=steps,
         wall_s=wall, requests_per_s=len(reqs) / wall,
         tokens_per_s=16 * len(reqs) / wall, admitted_mid_run=mid_run,
-        first_request_equals_solo=True)
+        first_request_equals_solo=True, solo_slots=solo_slots, **extra)
 
 
 def _profile(fn) -> dict:
@@ -376,8 +510,7 @@ def _profile(fn) -> dict:
             "top_ms": [[name, t / 1e3] for name, t in top]}
 
 
-def phase_profile(gen, cfg, model, params) -> None:
-    b, _, _, s, _ = PHI3_ATTN
+def phase_profile(gen, cfg, model, params, b: int, s: int) -> None:
     batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
                                      device=DEVICE)}
     out = {}
@@ -387,7 +520,373 @@ def phase_profile(gen, cfg, model, params) -> None:
     tok = embedloss.greedy(last, params["embed"], valid_vocab=cfg.vocab)
     decode = _profile(lambda: [model.decode_step(params, cache, tok)
                                for _ in range(4)])
-    log(phase="profile", prefill=prefill, decode_4_steps=decode)
+    log(phase="profile", arch=cfg.name, prefill=prefill,
+        decode_4_steps=decode)
+
+
+# ================================================================ zamba2-7b
+def phase_attention_kernels(gen, peaks, fa_rec: dict) -> dict:
+    """The chunked kernel on the reference cases; both attention kernels at
+    zamba2's shared-attention shape (head dim 112). Adds the flash kernel's
+    zamba2 numbers to ``fa_rec``; returns the chunked kernel's record."""
+    errs = {}
+    for case in FLASH_CASES:
+        b, hq, hkv, sq, skv, d, causal, window = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(gen, b, hq, hkv, sq, skv, d, dtype)
+            out = ca.chunked_attention_cuda(q, k, v, causal=causal,
+                                            window=window)
+            ref = attention_ref(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            require(out.shape == (b, hq, sq, d), (case, out.shape))
+            require(err < TOL[dtype], ("chunked", case, dtype, err))
+            errs[f"{case}/{str(dtype)[6:]}"] = err
+
+    b, hq, hkv, s, d = ZAMBA_ATTN
+    q, k, v = qkv(gen, b, hq, hkv, s, s, d, torch.bfloat16)
+    ref = attention_ref(q, k, v, causal=True)
+    out_fa = fa.flash_attention_cuda(q, k, v, causal=True)
+    out_ca = ca.chunked_attention_cuda(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err_fa, err_ca = max_err(out_fa, ref), max_err(out_ca, ref)
+    del out_fa, out_ca, ref
+    for name, err in (("flash", err_fa), ("chunked", err_ca)):
+        require(err < TOL[torch.bfloat16],
+                f"{name} kernel error {err} at zamba2's shape")
+    fa_ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True))
+    ca_ms = time_ms(lambda: ca.chunked_attention_cuda(q, k, v, causal=True))
+    plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=True), reps=20)
+    lib_ms = library_ms(q, k, v)
+    flops, nbytes = attn_work(b, hq, hkv, s, d)
+    bound_ms, bound_by = bound(flops, nbytes, peaks)
+    fa_rec["zamba2_shape"] = {
+        "shape": list(ZAMBA_ATTN), "max_abs_err": err_fa, "ms": fa_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": lib_ms}
+    rec = kernel_record("chunked_attention", "flash_attention/csrc/"
+                        "chunked_attention.cu",
+                        "flash_attention/chunked.py:110", err_ca, ca_ms,
+                        plain_ms, lib_ms, flops, nbytes, peaks)
+    log(phase="attention_kernels", cases=len(errs),
+        chunked_max_abs_err_cases=errs, shape=list(ZAMBA_ATTN),
+        dtype="bfloat16", causal=True, flash_zamba2=fa_rec["zamba2_shape"],
+        flash_tflops=flops / fa_ms / 1e9, chunked_tflops=flops / ca_ms / 1e9,
+        **{k: v for k, v in rec.items() if k != "launches"})
+    return rec
+
+
+def ssd_inputs(gen, b, l, h, p, n, dtype):
+    """Inputs of the scan as ``mamba_block`` makes them: x, B and C are
+    strided column views of one silu'd (B, L, H*P + 2N) tensor, dt is
+    softplus(N(0, 1) + the model's dt_bias), a = -linspace(1, 16)."""
+    xbc = F.silu(torch.randn((b, l, h * p + 2 * n), generator=gen,
+                             device=DEVICE)).to(dtype)
+    x = xbc[..., :h * p].reshape(b, l, h, p)
+    bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    bias = torch.log(torch.expm1(torch.linspace(0.001, 0.1, h,
+                                                device=DEVICE)))
+    dt = F.softplus(torch.randn((b, l, h), generator=gen, device=DEVICE)
+                    + bias)
+    a = -torch.linspace(1.0, 16.0, h, device=DEVICE)
+    return x, dt, a, bm, cm
+
+
+def ssd_work(b, l, h, p, n, q, itemsize) -> tuple[int, int]:
+    """(flops, bytes) the scan needs on these shapes: C.B^T over the causal
+    pairs of each chunk (shared by the heads), the masked scores times x,
+    C times the carried state, and the state update; x and y, B and C in
+    their dtype, dt and a in fp32 read once, the fp32 state written once."""
+    full, rem = divmod(l, q)
+    pairs = full * q * (q + 1) // 2 + rem * (rem + 1) // 2
+    flops = 2 * b * pairs * n + 2 * b * h * pairs * p + 4 * b * h * l * n * p
+    nbytes = (2 * b * l * h * p + 2 * b * l * n) * itemsize \
+        + 4 * (b * l * h + h + b * h * p * n)
+    return flops, nbytes
+
+
+def rel_max(a, b) -> float:
+    """Largest absolute difference relative to the reference's largest
+    magnitude."""
+    return max_err(a, b) / float(b.float().abs().max())
+
+
+def phase_ssd_kernel(gen, peaks) -> dict:
+    """The SSD kernel against its plain version on the reference cases and
+    at zamba2's and mamba2-1.3b's full-width layer shapes."""
+    errs = {}
+    for case in SSD_CASES:
+        b, l, h, p, n, chunk = case
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((b, l, h, p), generator=gen,
+                            device=DEVICE).to(dtype)
+            dt = 0.01 + 0.29 * torch.rand((b, l, h), generator=gen,
+                                          device=DEVICE)
+            a = -(0.5 + 1.5 * torch.rand((h,), generator=gen, device=DEVICE))
+            bm, cm = (torch.randn((b, l, n), generator=gen,
+                                  device=DEVICE).to(dtype) for _ in range(2))
+            y, st = sk.ssd_cuda(x, dt, a, bm, cm, chunk=chunk)
+            yr, sr = ssd_ref_sequential(x, dt, a, bm, cm)
+            torch.cuda.synchronize()
+            err = max(max_err(y, yr), max_err(st, sr))
+            require(y.shape == x.shape and y.dtype == dtype
+                    and st.shape == (b, h, p, n), (case, y.shape, st.shape))
+            require(err < SSD_TOL[dtype], ("ssd", case, dtype, err))
+            errs[f"{case}/{str(dtype)[6:]}"] = err
+
+    shapes = {}
+    for arch in SSD_ARCHS:
+        sc, d = get_config(arch).ssm, get_config(arch).d_model
+        b, l, h, p, n, q = (SSD_BATCH, SSD_LEN, sc.n_heads(d), sc.head_dim,
+                            sc.d_state, sc.chunk)
+        args = ssd_inputs(gen, b, l, h, p, n, torch.bfloat16)
+        y, st = sk.ssd_cuda(*args, chunk=q)
+        yr, sr = ssd_ref_sequential(*args)
+        torch.cuda.synchronize()
+        y_rel, st_rel = rel_max(y, yr), rel_max(st, sr)
+        require(bool(torch.isfinite(y).all() and torch.isfinite(st).all()),
+                f"{arch}: non-finite SSD output")
+        require(y_rel <= SSD_Y_REL_TOL and st_rel <= SSD_STATE_REL_TOL,
+                f"{arch} SSD shape: y {y_rel} (limit {SSD_Y_REL_TOL}), "
+                f"state {st_rel} (limit {SSD_STATE_REL_TOL})")
+        ms = time_ms(lambda: sk.ssd_cuda(*args, chunk=q))
+        plain_ms = time_ms(lambda: ssd_ref_sequential(*args),
+                           reps=PLAIN_REPS_SLOW, warmup=1)
+        flops, nbytes = ssd_work(b, l, h, p, n, q, 2)
+        shapes[arch] = kernel_record(
+            "ssd_scan", "ssd_scan/csrc/ssd_scan.cu",
+            "ssd_scan/kernel.py:93", max(max_err(y, yr), max_err(st, sr)),
+            ms, plain_ms, None, flops, nbytes, peaks)
+        shapes[arch].update(shape=[b, l, h, p, n, q], y_rel_err=y_rel,
+                            state_rel_err=st_rel, gflop=flops / 1e9,
+                            mbytes=nbytes / 1e6)
+        del args, y, st, yr, sr
+    rec = dict(shapes["zamba2-7b"])
+    rec["mamba2_shape"] = {k: shapes["mamba2-1.3b"][k] for k in (
+        "shape", "max_abs_err", "y_rel_err", "state_rel_err", "ms",
+        "plain_ms", "bound_ms", "bound_by")}
+    log(phase="ssd_kernel", cases=len(errs), max_abs_err_cases=errs,
+        y_rel_err_limit=SSD_Y_REL_TOL, state_rel_err_limit=SSD_STATE_REL_TOL,
+        shapes=shapes)
+    return rec
+
+
+def leaf_rel_err(cache, ref, s: int) -> dict[str, float]:
+    """Per cache leaf, the largest relative L2 error of one gated vector
+    (``LEAF_VEC_DIMS``) against ``ref``'s, over layers, lanes and
+    positions or heads; K/V over the first ``s`` positions."""
+    out = {}
+    for key, vec in LEAF_VEC_DIMS.items():
+        a, b = cache[key], ref[key]
+        if key in ("k_shared", "v_shared"):
+            a, b = a[:, :, :s], b[:, :, :s]
+        a, b = a.float().flatten(-vec), b.float().flatten(-vec)
+        e = (a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)
+        out[key] = float(e.max())
+    return out
+
+
+@contextlib.contextmanager
+def ssd_dropped_carry():
+    """The control: the plain blocked SSD run on every chunk alone, so the
+    state restarts at zero at each chunk (the inter-chunk carry is
+    dropped), the fault a new scan kernel is most likely to have."""
+    saved = ssm.ssd_ref
+
+    def no_carry(x, dt, A, B, C, chunk=128, init_state=None):
+        b, l, h, p = x.shape
+        pad = (-l) % chunk
+        x, dt = F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad))
+        B, C = F.pad(B, (0, 0, 0, pad)), F.pad(C, (0, 0, 0, pad))
+        nc = (l + pad) // chunk
+        y, st = saved(x.reshape(b * nc, chunk, h, p),
+                      dt.reshape(b * nc, chunk, h), A,
+                      B.reshape(b * nc, chunk, -1),
+                      C.reshape(b * nc, chunk, -1), chunk=chunk)
+        return (y.reshape(b, nc * chunk, h, p)[:, :l],
+                st.reshape(b, nc, *st.shape[1:])[:, -1])
+
+    ssm.ssd_ref = no_carry
+    try:
+        yield
+    finally:
+        ssm.ssd_ref = saved
+
+
+@contextlib.contextmanager
+def scan_output_in_bf16():
+    """The blocked plain SSD with its output rounded to bf16, as the kernel
+    returns it (``ssd_tpu``'s contract): logged, not gated."""
+    saved = ssm.ssd_ref
+
+    def rounded(*args, **kw):
+        y, state = saved(*args, **kw)
+        return y.to(torch.bfloat16), state
+
+    ssm.ssd_ref = rounded
+    try:
+        yield
+    finally:
+        ssm.ssd_ref = saved
+
+
+def reset_launches() -> None:
+    fa.launches = ca.launches = sk.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {"ssd_scan": sk.launches, "flash_attention": fa.launches,
+            "chunked_attention": ca.launches}
+
+
+def prefill_errs(cache, last, ref_cache, ref_last, s: int) -> dict:
+    """The last hidden state's relative max-norm error and every cache
+    leaf's worst vector error against a reference prefill."""
+    return {"last": rel_max(last, ref_last),
+            **leaf_rel_err(cache, ref_cache, s)}
+
+
+def fp32_params(params):
+    """An fp32 copy of the weights (bf16 -> fp32 is exact)."""
+    return {g: ({k: v.float() for k, v in t.items()} if isinstance(t, dict)
+                else t.float()) for g, t in params.items()}
+
+
+def phase_zamba_prefill(gen, fa_rec, ca_rec, ssd_rec):
+    cfg = get_config("zamba2-7b")
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    b, _, _, s, _ = ZAMBA_ATTN
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=DEVICE)
+    batch = {"tokens": tokens}
+    model.prefill(params, batch, CACHE_LEN)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: bf16, SSD and flash kernels
+    reset_launches()
+    t0 = time.perf_counter()
+    cache, last = model.prefill(params, batch, CACHE_LEN)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated()
+    launches = {"bf16 kernel": launch_counts()}
+    want = {"ssd_scan": cfg.n_layers, "flash_attention": model.n_super,
+            "chunked_attention": 0}
+    require(launches["bf16 kernel"] == want,
+            f"zamba2 prefill launches {launches['bf16 kernel']}, want {want}")
+    require(last.shape == (b, cfg.d_model) and torch.isfinite(last).all(),
+            "last hidden state shape or finiteness")
+    # the same weights through the chunked kernel, and the plain paths
+    chunked = Model(dataclasses.replace(cfg, attn_impl="chunked"))
+    plain = Model(dataclasses.replace(cfg, attn_impl="xla_flash",
+                                      ssd_impl="blocked"))
+    reset_launches()
+    t0 = time.perf_counter()
+    runs = {"chunked": chunked.prefill(params, batch, CACHE_LEN)}
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    launches["bf16 chunked"] = launch_counts()
+    want_c = dict(want, flash_attention=0, chunked_attention=model.n_super)
+    require(launches["bf16 chunked"] == want_c,
+            f"chunked prefill launches {launches['bf16 chunked']}, "
+            f"want {want_c}")
+    runs["plain"] = plain.prefill(params, batch, CACHE_LEN)
+    with ssd_dropped_carry():
+        runs["control"] = plain.prefill(params, batch, CACHE_LEN)
+    # logged only: two more plain paths that round at other places, the
+    # size of bf16's own noise beside the gated paths
+    runs["plain_naive"] = Model(dataclasses.replace(
+        cfg, attn_impl="naive", ssd_impl="blocked")).prefill(
+            params, batch, CACHE_LEN)
+    with scan_output_in_bf16():
+        runs["plain_round_y"] = plain.prefill(params, batch, CACHE_LEN)
+    runs["kernel"] = (cache, last)
+    vs_plain = {k: prefill_errs(*runs[k], *runs["plain"], s)
+                for k in ("kernel", "chunked", "plain_naive",
+                          "plain_round_y")}
+
+    # fp32 weights and activations: the truth the bf16 paths round away
+    # from, and the arithmetic in which the kernels must agree with the
+    # plain path to FP32_REL_TOL
+    p32 = fp32_params(params)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    truth = Model(dataclasses.replace(cfg32, attn_impl="xla_flash",
+                                      ssd_impl="blocked")).prefill(
+        p32, batch, CACHE_LEN)
+    bf16 = {k: prefill_errs(*runs.pop(k), *truth, s) for k in list(runs)}
+    ratio = {k: {leaf: e / max(bf16["plain"][leaf], 1e-30)
+                 for leaf, e in bf16[k].items()}
+             for k in ("kernel", "chunked", "control")}
+    for k in ("kernel", "chunked"):
+        worst = max(ratio[k], key=ratio[k].get)
+        require(ratio[k][worst] <= BF16_RATIO_TOL,
+                f"bf16 {k} prefill: {worst} is {ratio[k][worst]} times as "
+                f"far from the fp32 prefill as the plain bf16 prefill is "
+                f"(limit {BF16_RATIO_TOL}): {bf16[k]} vs {bf16['plain']}")
+    require(min(ratio["control"].values()) > BF16_RATIO_TOL,
+            f"the bf16 control (SSD without the inter-chunk carry) reads "
+            f"{ratio['control']}, not all above {BF16_RATIO_TOL}: the gate "
+            "cannot see a dropped carry")
+
+    fp32 = {}
+    for name, impls in (("kernel", {}), ("chunked", {"attn_impl": "chunked"})):
+        reset_launches()
+        run = Model(dataclasses.replace(cfg32, **impls)).prefill(
+            p32, batch, CACHE_LEN)
+        launches[f"fp32 {name}"] = launch_counts()
+        fp32[name] = prefill_errs(*run, *truth, s)
+        del run
+    require(launches["fp32 kernel"] == want
+            and launches["fp32 chunked"] == want_c,
+            f"fp32 prefill launches {launches}")
+    with ssd_dropped_carry():
+        fp32["control"] = prefill_errs(*Model(dataclasses.replace(
+            cfg32, attn_impl="xla_flash", ssd_impl="blocked")).prefill(
+                p32, batch, CACHE_LEN), *truth, s)
+    del p32, truth
+    for k in ("kernel", "chunked"):
+        worst = max(fp32[k], key=fp32[k].get)
+        require(fp32[k][worst] <= FP32_REL_TOL,
+                f"fp32 {k} prefill vs the plain fp32 prefill: {worst} "
+                f"{fp32[k][worst]} > {FP32_REL_TOL}: {fp32[k]}")
+    require(min(fp32["control"].values()) > FP32_REL_TOL,
+            f"the fp32 control reads {fp32['control']}, not all above "
+            f"{FP32_REL_TOL}: the gate cannot see a dropped carry")
+
+    # each kernel's ``launches`` is the count of one prefill of its main
+    # path (flash: phi3's, set in phase_prefill; SSD: zamba2's; chunked:
+    # zamba2's chunked one); the other main-path prefills stand beside it
+    main = {"zamba2-7b prefill": launches["bf16 kernel"],
+            "zamba2-7b chunked prefill": launches["bf16 chunked"]}
+    fa_rec["launches_by_path"] = {
+        "phi3-medium-14b prefill": fa_rec["launches"],
+        **{k: v["flash_attention"] for k, v in main.items()}}
+    for rec, key, path in (
+            (ssd_rec, "ssd_scan", "zamba2-7b prefill"),
+            (ca_rec, "chunked_attention", "zamba2-7b chunked prefill")):
+        rec["launches_by_path"] = {k: v[key] for k, v in main.items()}
+        rec["launches"] = main[path][key]
+    log(phase="prefill", arch=cfg.name, params=sum(
+        t.numel() for g in params.values()
+        for t in (g.values() if isinstance(g, dict) else [g])),
+        init_s=init_s, batch=b, prompt=s, cache_len=CACHE_LEN,
+        prefill_s=prefill_s, prefill_tokens_per_s=b * s / prefill_s,
+        chunked_prefill_s=chunked_s, launches=launches,
+        bf16_err_vs_fp32=bf16, bf16_ratio_to_plain=ratio,
+        bf16_err_vs_plain_bf16=vs_plain,
+        bf16_ratio_limit=BF16_RATIO_TOL, fp32_err_vs_plain_fp32=fp32,
+        fp32_rel_err_limit=FP32_REL_TOL,
+        init_peak_mem_gb=init_peak / 1e9,
+        prefill_peak_mem_gb=prefill_peak / 1e9,
+        run_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return cfg, model, params, cache, last
 
 
 def main() -> int:
@@ -401,16 +900,33 @@ def main() -> int:
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
 
+    peaks = PEAKS[card]
     phase_build()
-    rec = phase_kernel(gen, PEAKS[card])
-    cfg, model, params, cache, last = phase_prefill(gen, rec)
-    phase_decode(cfg, model, params, cache, last)
+    fa_rec = phase_kernel(gen, peaks)
+    reset_launches()
+    cfg, model, params, cache, last = phase_prefill(gen, fa_rec)
+    phase_decode(cfg, model, params, cache, last, PHI3_ATTN[3])
     del cache
     phase_serve(gen, cfg, model, params)
-    phase_profile(gen, cfg, model, params)
+    phase_profile(gen, cfg, model, params, PHI3_ATTN[0], PHI3_ATTN[3])
+    held = torch.cuda.memory_allocated()
+    del cfg, model, params, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(phase="free", arch="phi3-medium-14b", held_gb=held / 1e9,
+        after_gb=torch.cuda.memory_allocated() / 1e9)
+
+    ca_rec = phase_attention_kernels(gen, peaks, fa_rec)
+    ssd_rec = phase_ssd_kernel(gen, peaks)
+    cfg, model, params, cache, last = phase_zamba_prefill(
+        gen, fa_rec, ca_rec, ssd_rec)
+    phase_decode(cfg, model, params, cache, last, ZAMBA_ATTN[3])
+    del cache
+    phase_serve(gen, cfg, model, params, solo_slots=4)
+    phase_profile(gen, cfg, model, params, ZAMBA_ATTN[0], ZAMBA_ATTN[3])
 
     print(smi_name_power(), flush=True)
-    print(json.dumps({"kernels": [rec]}), flush=True)
+    print(json.dumps({"kernels": [fa_rec, ca_rec, ssd_rec]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}), flush=True)

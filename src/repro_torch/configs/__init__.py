@@ -1,3 +1,4 @@
 """Architecture registry of the port: importing this package registers every
-architecture whose model family the port runs (the dense family)."""
-from repro_torch.configs import phi3_medium_14b, stablelm_3b  # noqa: F401
+architecture whose model family the port runs (dense, ssm, hybrid)."""
+from repro_torch.configs import (  # noqa: F401
+    mamba2_1_3b, phi3_medium_14b, stablelm_3b, zamba2_7b)

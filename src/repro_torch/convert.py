@@ -24,18 +24,28 @@ def _leaf(arr, shape, dtype: torch.dtype, dev: torch.device, name: str):
     return t.to(device=dev, dtype=dtype)
 
 
+def _walk(tree, shapes, dtype, dev, path: str):
+    """``tree`` against ``shapes`` (nested dicts): the same names at every
+    level, every leaf of its shape."""
+    if not isinstance(tree, dict) or set(tree) != set(shapes):
+        got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+        raise ValueError(f"{path or 'params'}: leaf names {got} do not "
+                         f"match {sorted(shapes)}")
+    out = {}
+    for k, shape in shapes.items():
+        name = f"{path}/{k}" if path else k
+        out[k] = (_walk(tree[k], shape, dtype, dev, name)
+                  if isinstance(shape, dict)
+                  else _leaf(tree[k], shape, dtype, dev, name))
+    return out
+
+
 def params_from_jax(tree, cfg: ModelConfig, device=None) -> dict:
     """The reference's parameters (nested dict of numpy arrays) as the
-    port's, in ``cfg.param_dtype`` on ``device`` (default ``cuda``)."""
+    port's, in ``cfg.param_dtype`` on ``device`` (default ``cuda``). Every
+    group (``layers``; hybrid ``mamba``, ``tail``, ``shared_attn``) is
+    walked against ``Model.param_shapes``; a missing or extra name or a
+    wrong shape raises ``ValueError``."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
-    shapes = Model(cfg).param_shapes()
-    if set(tree) != set(shapes) or set(tree["layers"]) != set(shapes["layers"]):
-        raise ValueError(f"leaf names {sorted(tree)} / "
-                         f"{sorted(tree.get('layers', {}))} do not match "
-                         f"{sorted(shapes)} / {sorted(shapes['layers'])}")
-    out = {k: _leaf(tree[k], shapes[k], dtype, dev, k)
-           for k in shapes if k != "layers"}
-    out["layers"] = {k: _leaf(tree["layers"][k], s, dtype, dev, f"layers/{k}")
-                     for k, s in shapes["layers"].items()}
-    return out
+    return _walk(tree, Model(cfg).param_shapes(), dtype, dev, "")

@@ -1,8 +1,10 @@
 """Build the port's CUDA kernels from the sources in the checkout.
 
-The kernels (``*/csrc/*.cu``) are compiled by ``nvcc`` for ``sm_90a`` and
-bound to Python by ``torch.utils.cpp_extension.load`` with one small
-binding file, the only source that includes PyTorch's headers. The build
+The kernels (``*/csrc/*.cu``: flash attention, chunked two-pass attention,
+the SSD scan) are compiled by ``nvcc`` for ``sm_90a`` and bound to Python
+by ``torch.utils.cpp_extension.load`` as one extension, with one small
+binding file (``csrc/binding.cpp``), the only source that includes
+PyTorch's headers; ninja compiles the sources in parallel. The build
 runs at first use, into ``build/kernels`` at the root of the checkout
 (listed in ``.gitignore``), and is cached there by content. A failed
 build raises; nothing falls back to the plain versions.
@@ -11,9 +13,12 @@ from __future__ import annotations
 
 from pathlib import Path
 
-CSRC = Path(__file__).resolve().parent / "flash_attention" / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = (CSRC / "binding.cpp", CSRC / "flash_attention.cu")
+HERE = Path(__file__).resolve().parent
+BUILD_DIR = HERE.parents[2] / "build" / "kernels"
+SOURCES = (HERE / "csrc" / "binding.cpp",
+           HERE / "flash_attention" / "csrc" / "flash_attention.cu",
+           HERE / "flash_attention" / "csrc" / "chunked_attention.cu",
+           HERE / "ssd_scan" / "csrc" / "ssd_scan.cu")
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xptxas=-v")
 
@@ -38,3 +43,12 @@ def extension(verbose: bool = False):
             build_directory=str(BUILD_DIR), extra_cflags=["-O2"],
             extra_cuda_cflags=list(CUDA_FLAGS), verbose=verbose)
     return _extension
+
+
+def check_cuda(name, *tensors):
+    """Tensors a kernel wrapper was given that are not all on the CPU must
+    all be CUDA tensors: the wrapper then launches its kernel."""
+    if any(t.device.type != "cuda" for t in tensors):
+        raise ValueError(
+            f"{name} takes CPU tensors (plain version) or CUDA tensors "
+            f"(kernel), got {', '.join(str(t.device) for t in tensors)}")

@@ -1,0 +1,104 @@
+// Python binding of the port's CUDA kernels. The only source that includes
+// PyTorch's headers: the kernels themselves (*/csrc/*.cu) expose plain C++
+// launchers, so nvcc compiles them in seconds.
+#include <array>
+
+#include <torch/extension.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <c10/cuda/CUDAStream.h>
+#include <cuda_runtime.h>
+
+cudaError_t flash_attention_fwd_launch(
+    const void* q, const void* k, const void* v, void* o, int dtype,
+    int batch, int sq, int skv, int hq, int hkv, int d,
+    const int64_t* q_strides, const int64_t* k_strides,
+    const int64_t* v_strides, const int64_t* o_strides,
+    int causal, int window, float scale, cudaStream_t stream);
+
+cudaError_t chunked_attention_fwd_launch(
+    const void* q, const void* k, const void* v, void* o, int dtype,
+    int batch, int sq, int skv, int hq, int hkv, int d,
+    const int64_t* q_strides, const int64_t* k_strides,
+    const int64_t* v_strides, const int64_t* o_strides,
+    int causal, int window, float scale, cudaStream_t stream);
+
+cudaError_t ssd_scan_fwd_launch(
+    const void* x, const float* dt, const float* a, const void* bm,
+    const void* cm, void* y, float* state, int dtype, int batch, int L,
+    int H, int P, int N, int Q, const int64_t* x_strides,
+    const int64_t* dt_strides, const int64_t* b_strides,
+    const int64_t* c_strides, const int64_t* y_strides,
+    cudaStream_t stream);
+
+namespace {
+
+using AttnLaunch = decltype(&flash_attention_fwd_launch);
+
+// (batch, seq, head) element strides of a logical (B, H, S, D) tensor.
+std::array<int64_t, 3> bsh_strides(const torch::Tensor& t) {
+  return {t.stride(0), t.stride(2), t.stride(1)};
+}
+
+// q/o (B, Hq, S, D) and k/v (B, Hkv, S, D) in logical order, any strides
+// with the last dim contiguous; the Python wrapper has checked them.
+void attention_fwd(AttnLaunch launch, const char* name,
+                   const torch::Tensor& q, const torch::Tensor& k,
+                   const torch::Tensor& v, const torch::Tensor& o,
+                   bool causal, int64_t window, double scale) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  const auto qs = bsh_strides(q), ks = bsh_strides(k), vs = bsh_strides(v),
+             os = bsh_strides(o);
+  const int dtype = q.scalar_type() == torch::kBFloat16 ? 1 : 0;
+  const cudaError_t err = launch(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dtype,
+      q.size(0), q.size(2), k.size(2), q.size(1), k.size(1), q.size(3),
+      qs.data(), ks.data(), vs.data(), os.data(), causal, window,
+      static_cast<float>(scale), c10::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == cudaSuccess, name, " kernel launch failed: ",
+              cudaGetErrorString(err));
+}
+
+void flash_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
+                         const torch::Tensor& v, const torch::Tensor& o,
+                         bool causal, int64_t window, double scale) {
+  attention_fwd(&flash_attention_fwd_launch, "flash_attention", q, k, v, o,
+                causal, window, scale);
+}
+
+void chunked_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
+                           const torch::Tensor& v, const torch::Tensor& o,
+                           bool causal, int64_t window, double scale) {
+  attention_fwd(&chunked_attention_fwd_launch, "chunked_attention", q, k, v,
+                o, causal, window, scale);
+}
+
+// x/y (B, L, H, P), dt (B, L, H), a (H,), B/C (B, L, N), state (B, H, P, N)
+// contiguous; last dims contiguous. The Python wrapper has checked them.
+void ssd_scan_fwd(const torch::Tensor& x, const torch::Tensor& dt,
+                  const torch::Tensor& a, const torch::Tensor& bm,
+                  const torch::Tensor& cm, const torch::Tensor& y,
+                  const torch::Tensor& state, int64_t chunk) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  const std::array<int64_t, 3> xs{x.stride(0), x.stride(1), x.stride(2)},
+      dts{dt.stride(0), dt.stride(1), dt.stride(2)},
+      ys{y.stride(0), y.stride(1), y.stride(2)};
+  const std::array<int64_t, 2> bs{bm.stride(0), bm.stride(1)},
+      cs{cm.stride(0), cm.stride(1)};
+  const int dtype = x.scalar_type() == torch::kBFloat16 ? 1 : 0;
+  const cudaError_t err = ssd_scan_fwd_launch(
+      x.data_ptr(), dt.data_ptr<float>(), a.data_ptr<float>(), bm.data_ptr(),
+      cm.data_ptr(), y.data_ptr(), state.data_ptr<float>(), dtype,
+      x.size(0), x.size(1), x.size(2), x.size(3), bm.size(2), chunk,
+      xs.data(), dts.data(), bs.data(), cs.data(), ys.data(),
+      c10::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == cudaSuccess, "ssd_scan kernel launch failed: ",
+              cudaGetErrorString(err));
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("flash_attention_fwd", &flash_attention_fwd);
+  m.def("chunked_attention_fwd", &chunked_attention_fwd);
+  m.def("ssd_scan_fwd", &ssd_scan_fwd);
+}

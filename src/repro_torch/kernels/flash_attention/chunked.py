@@ -1,0 +1,38 @@
+"""Wrapper of the hand-written CUDA two-pass attention kernel
+(``csrc/chunked_attention.cu``), the port's counterpart of
+``chunked_attention_tpu``: the same function as the flash kernel by a lazy
+two-pass softmax (K read twice, no accumulator rescale), a separate
+implementation point on the scheduler's variant axis.
+
+CPU tensors go to the plain version (``ref.attention_ref``); CUDA tensors
+launch the kernel or raise. ``launches`` counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.kernel import check_args
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+launches = 0
+
+
+def chunked_attention_cuda(q, k, v, *, causal=True, window=0):
+    """q (B, Hq, Sq, D); k/v (B, Hkv, Skv, D) -> (B, Hq, Sq, D), with the
+    flash wrapper's contract: any strides with the head dim contiguous; on
+    CUDA the output is a (B, Sq, Hq, D) tensor's transposed view."""
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return attention_ref(q, k, v, causal=causal, window=window)
+    build.check_cuda("chunked_attention_cuda", q, k, v)
+    check_args(q, k, v, window)
+    global launches
+    b, hq, sq, d = q.shape
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    ot = out.transpose(1, 2)
+    build.extension().chunked_attention_fwd(q, k, v, ot, bool(causal),
+                                            int(window), 1.0 / math.sqrt(d))
+    launches += 1
+    return ot

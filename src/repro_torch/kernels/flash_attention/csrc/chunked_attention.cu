@@ -1,0 +1,232 @@
+// Two-pass (lazy softmax) attention forward for Hopper (sm_90a), causal /
+// sliding-window, GQA.
+//
+// Replaces the Pallas TPU kernel chunked_attention_tpu
+// (src/repro/kernels/flash_attention/chunked.py). It computes the same
+// function as flash_attention.cu, softmax(q k^T / sqrt(d) + mask) v, by the
+// memory-efficient two-pass softmax of Rabe & Staats (arXiv:2112.05682):
+//   pass 1: m = the row max of the masked scores over every reachable kv
+//           tile (K only);
+//   pass 2: l += sum exp(s - m), acc += exp(s - m) v over the same tiles,
+//           with no rescale of acc, since m is final before pass 2 starts;
+// then acc / max(l, 1e-30), so a fully masked row gives 0. It is a distinct
+// implementation point, not an alias of the flash kernel: it reads K twice
+// and drops the per-tile exp(m_prev - m_new) corrections, and the
+// scheduler's variant axis prices the two apart.
+//
+// What bounds it on this card: as for the flash kernel, operations (2 S^2 d
+// flops per (batch, head) at S = 2048 against ~4 S d bytes), plus the
+// second pass's q.k products: ~1.5x the flash kernel's multiply-adds on the
+// fp32 CUDA cores (67 TFLOP/s), not the tensor cores. What the design does
+// about it: both passes stop at the causal top and start at the window's
+// bottom (the reference runs every kv chunk in both passes,
+// chunked.py:66-84; the loop bounds compute the same function), K/V tiles
+// sit in shared memory, and the scores and accumulator stay in registers.
+//
+// Layout: the flash kernel's (attention_common.cuh: one block per (q tile,
+// head, batch), TPR threads per query row, strided (B, S, H, D) reads,
+// masks instead of padding). Head dims 32, 64, 112 and 128.
+#include "attention_common.cuh"
+
+namespace {
+
+using namespace attn;
+
+// The head dim d of the thread's c-th component of float4 group i.
+__device__ __forceinline__ int dim_of(int i, int part, int c) {
+  return i * 4 * TPR + part * 4 + c;
+}
+
+// The thread's slice of one query row, in fp32 (0 past the sequence end).
+template <typename T, int D>
+__device__ __forceinline__ void load_q(float (&qr)[D / TPR], const T* qg,
+                                       int64_t q_ss, int qp, bool row_ok,
+                                       int part) {
+#pragma unroll
+  for (int i = 0; i < D / TPR / 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      qr[i * 4 + c] = row_ok ? to_f(qg[qp * q_ss + dim_of(i, part, c)]) : 0.f;
+    }
+  }
+}
+
+// Rows k0 .. k0+BK of a (S, D) head slice into shared memory in fp32, 0
+// past the sequence end.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float (*dst)[D], const T* g,
+                                          int64_t ss, int k0, int skv) {
+  for (int idx = threadIdx.x; idx < BK * D; idx += NTHREADS) {
+    const int j = idx / D;
+    const int d = idx % D;
+    const int kp = k0 + j;
+    dst[j][d] = kp < skv ? to_f(g[kp * ss + d]) : 0.f;
+  }
+}
+
+// Rows k0 .. k0+BK of the K and V head slices together (one index
+// computation for both), as load_tile does for one.
+template <typename T, int D>
+__device__ __forceinline__ void load_kv_tile(float (*ks)[D], float (*vs)[D],
+                                             const T* kg, int64_t k_ss,
+                                             const T* vg, int64_t v_ss,
+                                             int k0, int skv) {
+  for (int idx = threadIdx.x; idx < BK * D; idx += NTHREADS) {
+    const int j = idx / D;
+    const int d = idx % D;
+    const int kp = k0 + j;
+    const bool ok = kp < skv;
+    ks[j][d] = ok ? to_f(kg[kp * k_ss + d]) : 0.f;
+    vs[j][d] = ok ? to_f(vg[kp * v_ss + d]) : 0.f;
+  }
+}
+
+// q . k_j over the full head dim: the thread's partial sum, finished across
+// the TPR threads of the row by two shuffles.
+template <int D>
+__device__ __forceinline__ float row_dot(const float (&qr)[D / TPR],
+                                         const float (*ks)[D], int j,
+                                         int part) {
+  const float4* kr = reinterpret_cast<const float4*>(&ks[j][0]);
+  float dot = 0.f;
+#pragma unroll
+  for (int i = 0; i < D / TPR / 4; ++i) {
+    const float4 kk = kr[i * TPR + part];
+    dot += qr[i * 4 + 0] * kk.x;
+    dot += qr[i * 4 + 1] * kk.y;
+    dot += qr[i * 4 + 2] * kk.z;
+    dot += qr[i * 4 + 3] * kk.w;
+  }
+  dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+  dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+  return dot;
+}
+
+// Whether query position qp attends to key position kp.
+__device__ __forceinline__ bool visible(const Params& p, int kp, int qp) {
+  return kp < p.skv && (!p.causal || kp <= qp) &&
+         (p.window <= 0 || kp > qp - p.window);
+}
+
+// The kv range [lo, hi) the mask can reach from the q tile starting at q0:
+// causality bounds the top, the window the bottom (the TPU kernels'
+// pl.when block skip); lo is rounded down to a tile start.
+__device__ __forceinline__ void kv_bounds(const Params& p, int q0, int& lo,
+                                          int& hi) {
+  hi = p.skv;
+  if (p.causal) hi = min(hi, q0 + BQ);
+  lo = 0;
+  if (p.window > 0) lo = max(0, q0 - p.window + 1);
+  lo = (lo / BK) * BK;
+}
+
+// The thread's slice of acc / max(l, 1e-30) into the output row (a fully
+// masked row gives 0).
+template <typename T, int D>
+__device__ __forceinline__ void store_row(const float (&acc)[D / TPR],
+                                          float l, T* og, int part) {
+  const float den = fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int i = 0; i < D / TPR / 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      og[dim_of(i, part, c)] = from_f<T>(acc[i * 4 + c] / den);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NTHREADS) chunked_fwd(const Params p) {
+  constexpr int DPT = D / TPR;       // head dims per thread
+  __shared__ __align__(16) float ks[BK][D];
+  __shared__ __align__(16) float vs[BK][D];
+
+  const int tid = threadIdx.x;
+  const int row = tid / TPR;
+  const int part = tid % TPR;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = blockIdx.x * BQ;
+  const int qp = q0 + row;
+  const bool row_ok = qp < p.sq;
+
+  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + (h / p.group) * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + (h / p.group) * p.v_sh;
+
+  float qr[DPT];
+  load_q<T, D>(qr, qg, p.q_ss, qp, row_ok, part);
+  int lo, hi;
+  kv_bounds(p, q0, lo, hi);
+
+  // pass 1: the row max over every reachable kv tile
+  float m = NEG;
+  for (int k0 = lo; k0 < hi; k0 += BK) {
+    __syncthreads();                 // the previous tile is consumed
+    load_tile<T, D>(ks, kg, p.k_ss, k0, p.skv);
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < BK; ++j) {
+      const float dot = row_dot<D>(qr, ks, j, part);
+      if (visible(p, k0 + j, qp)) m = fmaxf(m, dot * p.scale);
+    }
+  }
+
+  // pass 2: sum and accumulate against the final max, no rescale
+  float acc[DPT];
+#pragma unroll
+  for (int c = 0; c < DPT; ++c) acc[c] = 0.f;
+  float l = 0.f;
+  for (int k0 = lo; k0 < hi; k0 += BK) {
+    __syncthreads();
+    load_kv_tile<T, D>(ks, vs, kg, p.k_ss, vg, p.v_ss, k0, p.skv);
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < BK; ++j) {
+      const float dot = row_dot<D>(qr, ks, j, part);
+      const float e = visible(p, k0 + j, qp) ? expf(dot * p.scale - m) : 0.f;
+      l += e;
+      const float4* vr = reinterpret_cast<const float4*>(&vs[j][0]);
+#pragma unroll
+      for (int i = 0; i < DPT / 4; ++i) {
+        const float4 vv = vr[i * TPR + part];
+        acc[i * 4 + 0] += e * vv.x;
+        acc[i * 4 + 1] += e * vv.y;
+        acc[i * 4 + 2] += e * vv.z;
+        acc[i * 4 + 3] += e * vv.w;
+      }
+    }
+  }
+
+  if (row_ok) {
+    store_row<T, D>(acc, l, static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh +
+                                qp * p.o_ss, part);
+  }
+}
+
+template <typename T>
+cudaError_t launch_typed(const Params& p, int batch, int hq, int d,
+                         cudaStream_t stream) {
+  const dim3 grid((p.sq + BQ - 1) / BQ, hq, batch);
+  ATTN_DISPATCH_D(chunked_fwd, T, d, grid, stream, p)
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Same interface as flash_attention_fwd_launch: dtype 0 = float32,
+// 1 = bfloat16; element strides ordered (batch, seq, head), head dim
+// contiguous. Returns the launch's cudaGetLastError().
+cudaError_t chunked_attention_fwd_launch(
+    const void* q, const void* k, const void* v, void* o, int dtype,
+    int batch, int sq, int skv, int hq, int hkv, int d,
+    const int64_t* q_strides, const int64_t* k_strides,
+    const int64_t* v_strides, const int64_t* o_strides,
+    int causal, int window, float scale, cudaStream_t stream) {
+  const attn::Params p = attn::make_params(
+      q, k, v, o, sq, skv, hq, hkv, q_strides, k_strides, v_strides,
+      o_strides, causal, window, scale);
+  if (dtype == 0) return launch_typed<float>(p, batch, hq, d, stream);
+  if (dtype == 1) return launch_typed<__nv_bfloat16>(p, batch, hq, d, stream);
+  return cudaErrorInvalidValue;
+}

@@ -18,46 +18,18 @@
 // device memory once per 32 query rows, and keeps scores, the running
 // statistics and the accumulator in registers.
 //
-// Layout: one block per (q tile of BQ rows, q head, batch); BQ rows x TPR
-// threads per row. Each thread owns an interleaved D/TPR slice of the head
-// dimension, so a row's dot products are finished with two warp shuffles.
-// The inputs are read through element strides in the (B, S, H, D) layout
-// (last dim contiguous), so the caller never materialises a transpose; the
-// ragged tail of S is handled by load/store masks, not padding. GQA: the
-// kv head is q_head / group, K/V are never repeated.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Layout (attention_common.cuh, shared with chunked_attention.cu): one
+// block per (q tile of BQ rows, q head, batch), TPR threads per row, the
+// inputs read through strides in the (B, S, H, D) layout, so the caller
+// never materialises a transpose; the ragged tail of S is handled by
+// load/store masks, not padding. GQA: the kv head is q_head / group, K/V
+// are never repeated. Head dims 32, 64, 112 (zamba2's shared attention)
+// and 128.
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int BQ = 32;               // query rows per block
-constexpr int BK = 32;               // kv rows per shared-memory tile
-constexpr int TPR = 4;               // threads per query row
-constexpr int NTHREADS = BQ * TPR;   // 128
-constexpr float NEG = -1e30f;
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  int64_t q_sb, q_ss, q_sh;          // element strides (batch, seq, head)
-  int64_t k_sb, k_ss, k_sh;
-  int64_t v_sb, v_ss, v_sh;
-  int64_t o_sb, o_ss, o_sh;
-  int sq, skv, group, causal, window;
-  float scale;
-};
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using namespace attn;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS) flash_fwd(const Params p) {
@@ -181,12 +153,7 @@ template <typename T>
 cudaError_t launch_typed(const Params& p, int batch, int hq, int d,
                          cudaStream_t stream) {
   const dim3 grid((p.sq + BQ - 1) / BQ, hq, batch);
-  switch (d) {
-    case 32: flash_fwd<T, 32><<<grid, NTHREADS, 0, stream>>>(p); break;
-    case 64: flash_fwd<T, 64><<<grid, NTHREADS, 0, stream>>>(p); break;
-    case 128: flash_fwd<T, 128><<<grid, NTHREADS, 0, stream>>>(p); break;
-    default: return cudaErrorInvalidValue;
-  }
+  ATTN_DISPATCH_D(flash_fwd, T, d, grid, stream, p)
   return cudaGetLastError();
 }
 
@@ -201,14 +168,9 @@ cudaError_t flash_attention_fwd_launch(
     const int64_t* q_strides, const int64_t* k_strides,
     const int64_t* v_strides, const int64_t* o_strides,
     int causal, int window, float scale, cudaStream_t stream) {
-  Params p;
-  p.q = q; p.k = k; p.v = v; p.o = o;
-  p.q_sb = q_strides[0]; p.q_ss = q_strides[1]; p.q_sh = q_strides[2];
-  p.k_sb = k_strides[0]; p.k_ss = k_strides[1]; p.k_sh = k_strides[2];
-  p.v_sb = v_strides[0]; p.v_ss = v_strides[1]; p.v_sh = v_strides[2];
-  p.o_sb = o_strides[0]; p.o_ss = o_strides[1]; p.o_sh = o_strides[2];
-  p.sq = sq; p.skv = skv; p.group = hq / hkv;
-  p.causal = causal; p.window = window; p.scale = scale;
+  const attn::Params p = attn::make_params(
+      q, k, v, o, sq, skv, hq, hkv, q_strides, k_strides, v_strides,
+      o_strides, causal, window, scale);
   if (dtype == 0) return launch_typed<float>(p, batch, hq, d, stream);
   if (dtype == 1) return launch_typed<__nv_bfloat16>(p, batch, hq, d, stream);
   return cudaErrorInvalidValue;

@@ -14,18 +14,17 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_GRID_YZ = 65535
 
 launches = 0
 
 
-def _check(q, k, v, window):
-    if any(t.device.type != "cuda" for t in (q, k, v)):
-        raise ValueError("flash_attention_cuda takes CPU tensors (plain "
-                         "version) or CUDA tensors (kernel), got "
-                         f"{q.device}, {k.device}, {v.device}")
+def check_args(q, k, v, window):
+    """What both attention kernels take, checked on any device: dtypes,
+    shapes, head dim, grid limits, a contiguous head dim. Raises
+    ``ValueError``."""
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must lie on one device")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -61,7 +60,8 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0):
     ``.transpose(1, 2)`` gives the model's layout with no copy."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return attention_ref(q, k, v, causal=causal, window=window)
-    _check(q, k, v, window)
+    build.check_cuda("flash_attention_cuda", q, k, v)
+    check_args(q, k, v, window)
     global launches
     b, hq, sq, d = q.shape
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)

@@ -1,10 +1,11 @@
-"""Public wrapper of the flash-attention kernel in the framework layout.
+"""Public wrappers of the two attention kernels in the framework layout.
 
-Takes (B, S, H, D) and hands the kernel ``transpose(1, 2)`` views: the
-kernel reads through strides, so no transposed copy is made (the
+Take (B, S, H, D) and hand the kernels ``transpose(1, 2)`` views: the
+kernels read through strides, so no transposed copy is made (the
 reference's ``ops.py`` materialises three)."""
 from __future__ import annotations
 
+from repro_torch.kernels.flash_attention.chunked import chunked_attention_cuda
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 
 
@@ -12,4 +13,13 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     """q (B, Sq, Hq, D); k/v (B, Skv, Hkv, D) -> (B, Sq, Hq, D)."""
     o = flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2), causal=causal, window=window)
+    return o.transpose(1, 2)
+
+
+def chunked_attention(q, k, v, *, causal=True, window=0):
+    """The two-pass kernel, same layout and function as
+    :func:`flash_attention`."""
+    o = chunked_attention_cuda(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=causal,
+                               window=window)
     return o.transpose(1, 2)

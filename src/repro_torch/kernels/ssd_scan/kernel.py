@@ -1,0 +1,74 @@
+"""Wrapper of the hand-written CUDA SSD scan kernel (``csrc/ssd_scan.cu``),
+the port's counterpart of ``ssd_tpu``.
+
+CPU tensors go to the plain version (``ref.ssd_ref_sequential``); CUDA
+tensors launch the kernel or raise. ``launches`` counts the kernel's
+launches. Unlike ``ssd_tpu`` the wrapper neither pads L nor transposes:
+the kernel masks the ragged last chunk and reads every input through its
+strides (only the last dim of each must be contiguous).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ssd_scan.ref import ssd_ref_sequential
+
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_P, MAX_N, MAX_CHUNK = 64, 128, 4096
+MAX_GRID_Y = 65535
+
+launches = 0
+
+
+def check_args(x, dt, a, bmat, cmat, chunk):
+    """What the kernel takes, checked on any device. Raises
+    ``ValueError``."""
+    if len({t.device for t in (x, dt, a, bmat, cmat)}) != 1:
+        raise ValueError("x, dt, a, B and C must lie on one device")
+    if x.dtype not in DTYPES or bmat.dtype != x.dtype \
+            or cmat.dtype != x.dtype:
+        raise ValueError(f"dtypes {x.dtype}, {bmat.dtype}, {cmat.dtype}: "
+                         f"x, B and C take one of {DTYPES}")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise ValueError(f"dt {dt.dtype} and a {a.dtype} must be float32")
+    if x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 \
+            or bmat.dim() != 3 or bmat.shape != cmat.shape:
+        raise ValueError("want x (B, L, H, P), dt (B, L, H), a (H,), "
+                         "B and C (B, L, N)")
+    b, l, h, p = x.shape
+    n = bmat.shape[2]
+    if tuple(dt.shape) != (b, l, h) or tuple(a.shape) != (h,) \
+            or tuple(bmat.shape[:2]) != (b, l) or l < 1:
+        raise ValueError(f"shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
+                         f"a {tuple(a.shape)}, B {tuple(bmat.shape)} "
+                         "disagree, or L is 0")
+    if p % 4 or p > MAX_P or n % 4 or n > MAX_N:
+        raise ValueError(f"head dim {p} and state dim {n}: the kernel takes "
+                         f"multiples of 4 up to {MAX_P} and {MAX_N}")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} outside 1..{MAX_CHUNK}")
+    if b > MAX_GRID_Y:
+        raise ValueError(f"batch {b} exceeds the grid limit")
+    if any(t.stride(-1) != 1 for t in (x, dt, bmat, cmat)) \
+            or a.stride(0) != 1:
+        raise ValueError("the last dim of every input must be contiguous")
+
+
+def ssd_cuda(x, dt, a, bmat, cmat, *, chunk=128):
+    """x (B, L, H, P); dt (B, L, H) fp32 [post-softplus]; a (H,) fp32
+    [negative]; bmat/cmat (B, L, N). Returns (y (B, L, H, P) in x's
+    dtype, state (B, H, P, N) fp32), as ``ssd_tpu``."""
+    if all(t.device.type == "cpu" for t in (x, dt, a, bmat, cmat)):
+        return ssd_ref_sequential(x, dt, a, bmat, cmat)
+    build.check_cuda("ssd_cuda", x, dt, a, bmat, cmat)
+    check_args(x, dt, a, bmat, cmat, chunk)
+    global launches
+    b, l, h, p = x.shape
+    y = torch.empty_like(x, memory_format=torch.contiguous_format)
+    state = torch.empty((b, h, p, bmat.shape[2]), dtype=torch.float32,
+                        device=x.device)
+    build.extension().ssd_scan_fwd(x, dt, a, bmat, cmat, y, state,
+                                   min(int(chunk), l))
+    launches += 1
+    return y, state

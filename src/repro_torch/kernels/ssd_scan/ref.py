@@ -1,0 +1,23 @@
+"""Plain PyTorch version of the SSD kernel: the naive sequential
+recurrence, one step per position."""
+from __future__ import annotations
+
+import torch
+
+
+def ssd_ref_sequential(x, dt, a, bmat, cmat):
+    """x (B, L, H, P); dt (B, L, H); a (H,); bmat/cmat (B, L, N).
+    Returns (y (B, L, H, P) in x's dtype, state (B, H, P, N) fp32)."""
+    b, l, h, p = x.shape
+    n = bmat.shape[-1]
+    xf, dtf = x.float(), dt.float()
+    bf, cf, af = bmat.float(), cmat.float(), a.float()
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    ys = torch.empty((b, l, h, p), dtype=torch.float32, device=x.device)
+    for t in range(l):
+        dt_t = dtf[:, t]                                       # (B, H)
+        upd = (dt_t[:, :, None] * xf[:, t])[..., None] \
+            * bf[:, t, None, None, :]                          # (B, H, P, N)
+        state = state * torch.exp(dt_t * af)[..., None, None] + upd
+        ys[:, t] = torch.einsum("bn,bhpn->bhp", cf[:, t], state)
+    return ys.to(x.dtype), state

@@ -7,6 +7,9 @@ Prefill paths, chosen by ``ModelConfig.attn_impl``:
   - ``kernel``    : the hand-written CUDA flash-attention kernel
                     (``repro_torch.kernels.flash_attention``) for CUDA
                     tensors, its plain version for CPU tensors;
+  - ``chunked``   : the hand-written CUDA two-pass (lazy softmax) kernel,
+                    the same function by another implementation point,
+                    likewise its plain version for CPU tensors;
   - ``xla_flash`` : chunked running-softmax attention in plain torch, the
                     math of the kernel (the name is the reference's);
   - ``naive``     : O(S^2) oracle (tests, tiny shapes).
@@ -22,7 +25,7 @@ import torch
 from repro_torch.kernels.flash_attention import ops as fa_ops
 
 _NEG = -1e30
-IMPLS = ("kernel", "xla_flash", "naive")
+IMPLS = ("kernel", "chunked", "xla_flash", "naive")
 
 
 def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
@@ -103,6 +106,8 @@ def context_attention(q, k, v, *, causal=True, window=0, impl="kernel"):
     dispatched on ``impl`` (``ModelConfig.attn_impl``)."""
     if impl == "kernel":
         return fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    if impl == "chunked":
+        return fa_ops.chunked_attention(q, k, v, causal=causal, window=window)
     if impl == "xla_flash":
         return flash_attention_xla(q, k, v, causal=causal, window=window)
     if impl == "naive":

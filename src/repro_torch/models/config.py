@@ -1,9 +1,17 @@
 """Model configuration dataclasses and the architecture registry.
 
 A copy of ``repro.models.config`` (pure Python, no framework import) with
-one deliberate difference: ``ModelConfig.attn_impl`` defaults to
-``"kernel"``, the hand-written CUDA flash-attention kernel, and the port
-reads it (``models/attention.py:context_attention``).
+two deliberate differences:
+
+1. ``ModelConfig.attn_impl`` defaults to ``"kernel"``, the hand-written
+   CUDA flash-attention kernel, and the port reads it
+   (``models/attention.py:context_attention``); ``"chunked"`` selects the
+   hand-written two-pass kernel.
+2. ``ModelConfig.ssd_impl`` (absent in the reference) is the config-level
+   counterpart of the reference's ``mamba_block(use_kernel=...)``:
+   ``"kernel"`` (default) runs prefill's SSD scan in the hand-written CUDA
+   kernel, ``"blocked"`` in the plain-torch block decomposition
+   (``models/ssm.py:ssd_ref``), which is what the reference's models run.
 """
 from __future__ import annotations
 
@@ -68,10 +76,15 @@ class ModelConfig:
     tie_embeddings: bool = True
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
-    # Prefill attention: 'kernel' (the CUDA kernel for CUDA tensors, its
-    # plain version for CPU tensors), 'xla_flash' (chunked plain torch),
-    # 'naive' (O(S^2) oracle, small tests only).
+    # Prefill attention: 'kernel' (the CUDA flash kernel for CUDA tensors,
+    # its plain version for CPU tensors), 'chunked' (the CUDA two-pass
+    # kernel, likewise), 'xla_flash' (chunked plain torch), 'naive' (O(S^2)
+    # oracle, small tests only).
     attn_impl: str = "kernel"
+    # Prefill SSD scan: 'kernel' (the CUDA kernel for CUDA tensors, its
+    # plain version for CPU tensors) or 'blocked' (plain-torch chunked
+    # block decomposition).
+    ssd_impl: str = "kernel"
     remat: bool = True
     scan_layers: bool = True
 

@@ -1,14 +1,22 @@
-"""The dense decoder transformer (RoPE, GQA, SwiGLU), counterpart of the
-dense family of ``repro.models.transformer``.
+"""The model families of the port, counterpart of
+``repro.models.transformer``:
+
+  dense  : pre-norm decoder transformer (RoPE, GQA, SwiGLU);
+  ssm    : Mamba2 (SSD) stack;
+  hybrid : zamba2 — Mamba2 superblocks of ``shared_attn_every`` layers,
+           each followed by one *shared* attention + MLP block (one set of
+           weights for every application), then a tail of
+           ``n_layers % shared_attn_every`` Mamba2 layers.
 
 Parameters are a dict with the reference's leaf names and its stacked
-``[L, ...]`` layer layout (``params["layers"]["wq"]`` is (L, D, Hq*hd)), so
-``repro_torch.convert.params_from_jax`` loads the reference's parameters
-as they are. The reference's ``lax.scan`` over layers is a Python loop
-over dim 0. Its donated, functional cache updates are in-place
-``index_copy_`` / ``index_fill_`` on a preallocated cache here: a cache
-passed to ``decode_step`` or ``reset_cache_lane`` is updated in place
-and returned.
+layouts (``params["layers"]["wq"]`` is (L, D, Hq*hd); hybrid has
+``mamba`` (n_super, per, ...), ``tail`` (n_tail, ...) and an unstacked
+``shared_attn``), so ``repro_torch.convert.params_from_jax`` loads the
+reference's parameters as they are. The reference's ``lax.scan`` over
+layers is a Python loop over the stack dims. Its donated, functional
+cache updates are in-place ``copy_`` / ``index_copy_`` / ``index_fill_``
+on a preallocated cache here: a cache passed to ``forward``,
+``decode_step`` or ``reset_cache_lane`` is updated in place and returned.
 """
 from __future__ import annotations
 
@@ -23,11 +31,15 @@ from repro_torch.models import embedloss
 from repro_torch.models.attention import context_attention, decode_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, rms_norm, rope_table, swiglu
+from repro_torch.models.ssm import mamba_block
 
 Params = dict[str, Any]
 
-LAYER_LEAVES = ("ln_attn", "wq", "wk", "wv", "wo",
-                "ln_mlp", "w_gate", "w_up", "w_down")
+KINDS = ("dense", "ssm", "hybrid")
+SSD_IMPLS = ("kernel", "blocked")
+# stack dims of each layer group: dense/ssm "layers" (L,), hybrid "mamba"
+# (n_super, per), "tail" (n_tail,), "shared_attn" unstacked
+STACK_DIMS = {"layers": 1, "mamba": 2, "tail": 1, "shared_attn": 0}
 
 
 def _dt(name: str) -> torch.dtype:
@@ -35,56 +47,117 @@ def _dt(name: str) -> torch.dtype:
 
 
 class Model(nn.Module):
-    """The dense family (``kind="dense"``, ``window=0``). Methods take the
+    """The dense, ssm and hybrid families (``window=0``). Methods take the
     parameter dict explicitly, as the reference's do, so one model object
     serves several parameter sets (the tests hold the port against the
     reference this way)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.kind != "dense" or cfg.window > 0:
+        if cfg.kind not in KINDS or cfg.window > 0 or (
+                cfg.kind == "hybrid" and cfg.shared_attn_every <= 0):
             raise NotImplementedError(
                 f"{cfg.name}: kind={cfg.kind!r}, window={cfg.window} is not "
-                "ported yet; the port runs the dense family only (ROADMAP "
-                "Queue A item 7)")
+                f"ported yet; the port runs {KINDS} without a window "
+                "(ROADMAP Queue A item 7)")
+        if cfg.ssd_impl not in SSD_IMPLS:
+            raise ValueError(f"unknown ssd_impl {cfg.ssd_impl!r}; expected "
+                             f"one of {SSD_IMPLS}")
         self.cfg = cfg
 
+    # ------------------------------------------------------------ structure
+    @property
+    def n_super(self) -> int:
+        """Hybrid superblocks (Mamba2 layers + one shared attention)."""
+        c = self.cfg
+        return c.n_layers // c.shared_attn_every if c.kind == "hybrid" else 0
+
+    @property
+    def n_tail(self) -> int:
+        """Hybrid Mamba2 layers after the last superblock."""
+        c = self.cfg
+        return c.n_layers % c.shared_attn_every if c.kind == "hybrid" else 0
+
     # ---------------------------------------------------------------- init
+    def _attn_mlp_shapes(self, stack: tuple) -> dict[str, tuple]:
+        c = self.cfg
+        d, hq, hkv, hd, f = c.d_model, c.n_heads, c.n_kv_heads, c.hd, c.d_ff
+        return {"ln_attn": stack + (d,), "wq": stack + (d, hq * hd),
+                "wk": stack + (d, hkv * hd), "wv": stack + (d, hkv * hd),
+                "wo": stack + (hq * hd, d), "ln_mlp": stack + (d,),
+                "w_gate": stack + (d, f), "w_up": stack + (d, f),
+                "w_down": stack + (f, d)}
+
+    def _mamba_shapes(self, stack: tuple) -> dict[str, tuple]:
+        c = self.cfg
+        s, d = c.ssm, c.d_model
+        di, n, h, w = s.d_inner(d), s.d_state, s.n_heads(d), s.conv_width
+        return {"ln_ssm": stack + (d,),
+                "in_proj": stack + (d, 2 * di + 2 * n + h),
+                "conv_w": stack + (w, di + 2 * n), "dt_bias": stack + (h,),
+                "A_log": stack + (h,), "D": stack + (h,),
+                "ssm_norm": stack + (di,), "out_proj": stack + (di, d)}
+
     def param_shapes(self) -> dict[str, Any]:
         """Leaf shapes of the parameter dict, in the reference's order."""
         c = self.cfg
-        d, hq, hkv, hd, f, L = (c.d_model, c.n_heads, c.n_kv_heads, c.hd,
-                                c.d_ff, c.n_layers)
-        layers = {
-            "ln_attn": (L, d), "wq": (L, d, hq * hd), "wk": (L, d, hkv * hd),
-            "wv": (L, d, hkv * hd), "wo": (L, hq * hd, d), "ln_mlp": (L, d),
-            "w_gate": (L, d, f), "w_up": (L, d, f), "w_down": (L, f, d),
-        }
-        return {"embed": (c.padded_vocab, d), "ln_final": (d,),
-                "layers": layers}
+        out: dict[str, Any] = {"embed": (c.padded_vocab, c.d_model),
+                               "ln_final": (c.d_model,)}
+        if c.kind == "dense":
+            out["layers"] = self._attn_mlp_shapes((c.n_layers,))
+        elif c.kind == "ssm":
+            out["layers"] = self._mamba_shapes((c.n_layers,))
+        else:
+            out["mamba"] = self._mamba_shapes((self.n_super,
+                                               c.shared_attn_every))
+            if self.n_tail:
+                out["tail"] = self._mamba_shapes((self.n_tail,))
+            out["shared_attn"] = self._attn_mlp_shapes(())
+        return out
 
     def init(self, seed: int = 0, device=None) -> Params:
         """Random parameters from a seeded ``torch.Generator`` on ``device``
-        (default ``cuda``): dense leaves ~ N(0, 1/fan_in) drawn in fp32 and
-        cast to ``param_dtype``, norm scales 0. The numbers differ from the
-        reference's ``jax.random`` draws; the layout does not."""
+        (default ``cuda``): dense leaves ~ N(0, 1/fan_in), norm scales 0,
+        and the reference's constants for the SSM's ``dt_bias``, ``A_log``
+        and ``D``. A stacked leaf is drawn one layer at a time in fp32 and
+        copied into the preallocated leaf in ``param_dtype``, so the fp32
+        temporary is one layer's, not the stack's. The numbers differ from
+        the reference's ``jax.random`` draws; the layout does not."""
         dev = resolve_device(device)
         dtype = _dt(self.cfg.param_dtype)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
 
-        def leaf(name, shape, fan_in_axis):
-            if name.startswith("ln_"):
-                return torch.zeros(shape, dtype=dtype, device=dev)
-            w = torch.randn(shape, generator=gen, device=dev,
-                            dtype=torch.float32)
-            return w.mul_(1.0 / math.sqrt(shape[fan_in_axis])).to(dtype)
+        def leaf(name, shape, n_stack, fan_in_axis=None):
+            out = torch.empty(shape, dtype=dtype, device=dev)
+            h = shape[-1]
+            if name.startswith("ln_") or name == "ssm_norm":
+                return out.zero_()
+            if name == "D":
+                return out.fill_(1.0)
+            if name in ("dt_bias", "A_log"):
+                lo, hi = (0.001, 0.1) if name == "dt_bias" else (1.0, 16.0)
+                r = torch.linspace(lo, hi, h, dtype=torch.float32,
+                                   device=dev)
+                r = torch.log(torch.expm1(r)) if name == "dt_bias" \
+                    else torch.log(r)
+                return out.copy_(r.expand(shape))
+            std = 1.0 / math.sqrt(shape[n_stack if fan_in_axis is None
+                                        else fan_in_axis])
+            layers = out.view(-1, *shape[n_stack:])
+            for i in range(layers.shape[0]):
+                w = torch.randn(shape[n_stack:], generator=gen, device=dev,
+                                dtype=torch.float32)
+                layers[i].copy_(w.mul_(std))
+            return out
 
-        shapes = self.param_shapes()
-        params: Params = {"embed": leaf("embed", shapes["embed"], 1),
-                          "ln_final": leaf("ln_final", shapes["ln_final"], 0)}
-        params["layers"] = {name: leaf(name, shape, 1)
-                            for name, shape in shapes["layers"].items()}
+        params: Params = {}
+        for group, shapes in self.param_shapes().items():
+            if isinstance(shapes, dict):
+                params[group] = {name: leaf(name, shape, STACK_DIMS[group])
+                                 for name, shape in shapes.items()}
+            else:  # embed (fan-in d_model, axis 1) and ln_final
+                params[group] = leaf(group, shapes, 0, fan_in_axis=-1)
         return params
 
     # ------------------------------------------------------ shared pieces
@@ -106,53 +179,142 @@ class Model(nn.Module):
         return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
 
     @staticmethod
-    def _layer(params: Params, i: int) -> dict[str, torch.Tensor]:
-        return {name: params["layers"][name][i] for name in LAYER_LEAVES}
+    def _index(tree: Params, *idx) -> dict[str, torch.Tensor]:
+        """One layer's leaves of a stacked group."""
+        return {name: leaf[idx] for name, leaf in tree.items()}
+
+    def _layers(self, params: Params, cache=None):
+        """The layer sequence in order, as (kind, params, cache views):
+        ``("attn", p, (k, v))`` for a dense layer or a shared attention
+        application (an attention + MLP block), ``("mamba", p, (conv,
+        state))`` for a Mamba2 layer; the cache views are None without a
+        cache."""
+        c = self.cfg
+
+        def views(*keys_idx):
+            if cache is None:
+                return None
+            return tuple(cache[key][idx] for key, idx in keys_idx)
+
+        if c.kind == "dense":
+            for i in range(c.n_layers):
+                yield ("attn", self._index(params["layers"], i),
+                       views(("k", i), ("v", i)))
+        elif c.kind == "ssm":
+            for i in range(c.n_layers):
+                yield ("mamba", self._index(params["layers"], i),
+                       views(("conv", i), ("state", i)))
+        else:
+            for si in range(self.n_super):
+                for j in range(c.shared_attn_every):
+                    yield ("mamba", self._index(params["mamba"], si, j),
+                           views(("conv", (si, j)), ("state", (si, j))))
+                yield ("attn", params["shared_attn"],
+                       views(("k_shared", si), ("v_shared", si)))
+            for t in range(self.n_tail):
+                yield ("mamba", self._index(params["tail"], t),
+                       views(("conv_tail", t), ("state_tail", t)))
 
     # ------------------------------------------------------------- forward
     def forward(self, params: Params, batch: dict, cache=None):
         """Full-sequence forward -> final hidden states (B, S, D).
 
         Given a decode ``cache`` (from :meth:`init_cache`, ``seq_len`` >= S),
-        each layer writes its K/V into ``cache["k"][i, :, :S]`` and
-        ``cache["v"][i, :, :S]`` in place: the counterpart of the
-        reference's ``collect=True``, which returns them stacked."""
+        each layer writes its cache material into it in place: attention
+        K/V into ``cache[k][..., :S]`` rows, Mamba2 conv inputs and final
+        SSM states into their leaves. The counterpart of the reference's
+        ``collect=True``, which returns them stacked."""
         c = self.cfg
         tokens = batch["tokens"]
         x = embedloss.embed_in(params["embed"], tokens, _dt(c.compute_dtype))
         s = x.shape[1]
         sin, cos = rope_table(torch.arange(s, device=x.device), c.hd,
                               c.rope_theta)
-        for i in range(c.n_layers):
-            p = self._layer(params, i)
+        for kind, p, views in self._layers(params, cache):
+            if kind == "mamba":
+                h = rms_norm(x, p["ln_ssm"], c.norm_eps)
+                y, (conv, state) = mamba_block(
+                    p, h, c.ssm, use_kernel=c.ssd_impl == "kernel")
+                x = x + y
+                if views is not None:
+                    views[0].copy_(conv)
+                    views[1].copy_(state)
+                continue
             x, (k, v) = self._attn_train(p, x, sin, cos)
-            if cache is not None:
-                cache["k"][i, :, :s].copy_(k)
-                cache["v"][i, :, :s].copy_(v)
+            if views is not None:
+                views[0][:, :s].copy_(k)
+                views[1][:, :s].copy_(v)
             x = self._ffn(p, x)
         return rms_norm(x, params["ln_final"], c.norm_eps)
 
     # ================================================================ decode
     def init_cache(self, batch_size: int, seq_len: int, device=None):
         """Zeroed decode cache for a max context of ``seq_len``: per-slot
-        positions ``pos`` (B,) int32 and K/V (L, B, S, Hkv, hd)."""
+        positions ``pos`` (B,) int32; attention K/V (n, B, S, Hkv, hd);
+        Mamba2 conv inputs (n, B, W-1, di+2N) and SSM states
+        (n, B, H, P, N) fp32 — the reference's leaves and shapes."""
         c = self.cfg
         dev = resolve_device(device)
-        kv = (c.n_layers, batch_size, seq_len, c.n_kv_heads, c.hd)
         cdt = _dt(c.compute_dtype)
-        return {"pos": torch.zeros(batch_size, dtype=torch.int32, device=dev),
-                "k": torch.zeros(kv, dtype=cdt, device=dev),
-                "v": torch.zeros(kv, dtype=cdt, device=dev)}
+        b = batch_size
+
+        def zeros(shape, dtype=cdt):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        def kv(n):
+            return (n, b, seq_len, c.n_kv_heads, c.hd)
+
+        cache = {"pos": zeros((b,), torch.int32)}
+        if c.kind == "dense":
+            cache["k"] = zeros(kv(c.n_layers))
+            cache["v"] = zeros(kv(c.n_layers))
+            return cache
+        s = c.ssm
+        conv = (b, s.conv_width - 1, s.d_inner(c.d_model) + 2 * s.d_state)
+        state = (b, s.n_heads(c.d_model), s.head_dim, s.d_state)
+        if c.kind == "ssm":
+            cache["conv"] = zeros((c.n_layers,) + conv)
+            cache["state"] = zeros((c.n_layers,) + state, torch.float32)
+            return cache
+        stack = (self.n_super, c.shared_attn_every)
+        cache["conv"] = zeros(stack + conv)
+        cache["state"] = zeros(stack + state, torch.float32)
+        if self.n_tail:
+            cache["conv_tail"] = zeros((self.n_tail,) + conv)
+            cache["state_tail"] = zeros((self.n_tail,) + state,
+                                        torch.float32)
+        cache["k_shared"] = zeros(kv(self.n_super))
+        cache["v_shared"] = zeros(kv(self.n_super))
+        return cache
 
     def cache_axes(self):
         """Logical axes of the cache leaves (where the batch axis is)."""
+        c = self.cfg
         kv = (None, "batch", "kv_seq", None, None)
-        return {"pos": ("batch",), "k": kv, "v": kv}
+        ax: dict[str, Any] = {"pos": ("batch",)}
+        if c.kind == "dense":
+            ax["k"] = kv
+            ax["v"] = kv
+        elif c.kind == "ssm":
+            ax["conv"] = (None, "batch", None, "ff")
+            ax["state"] = (None, "batch", "q_heads", None, None)
+        else:
+            ax["conv"] = (None, None, "batch", None, "ff")
+            ax["state"] = (None, None, "batch", "q_heads", None, None)
+            if self.n_tail:
+                ax["conv_tail"] = (None, "batch", None, "ff")
+                ax["state_tail"] = (None, "batch", "q_heads", None, None)
+            ax["k_shared"] = kv
+            ax["v_shared"] = kv
+        return ax
 
     def reset_cache_lane(self, cache, slot: int):
         """Zero one batch lane of a decode cache in place (``pos[slot] = 0``
         and every leaf's ``slot`` row along its batch axis): what
-        :meth:`init_cache` would have produced for that lane."""
+        :meth:`init_cache` would have produced for that lane. Attention
+        masks already hide K/V past a lane's position, but the SSM conv and
+        state leaves carry history unconditionally, so every leaf is
+        wiped."""
         axes = self.cache_axes()
         for key, val in cache.items():
             idx = torch.tensor([slot], device=val.device)
@@ -191,10 +353,18 @@ class Model(nn.Module):
         pos = cache["pos"]
         x = embedloss.embed_in(params["embed"], tokens[:, None],
                                _dt(c.compute_dtype))
-        for i in range(c.n_layers):
-            p = self._layer(params, i)
-            x = self._attn_decode(p, x, (cache["k"][i], cache["v"][i]), pos)
-            x = self._ffn(p, x)
+        for kind, p, views in self._layers(params, cache):
+            if kind == "mamba":
+                h = rms_norm(x, p["ln_ssm"], c.norm_eps)
+                y, (conv, state) = mamba_block(p, h, c.ssm,
+                                               conv_cache=views[0],
+                                               ssd_state=views[1])
+                views[0].copy_(conv)
+                views[1].copy_(state)
+                x = x + y
+            else:
+                x = self._attn_decode(p, x, views, pos)
+                x = self._ffn(p, x)
         x = rms_norm(x, params["ln_final"], c.norm_eps)
         nxt = embedloss.greedy(x[:, 0], params["embed"], valid_vocab=c.vocab)
         pos.add_(1)

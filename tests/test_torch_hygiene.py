@@ -4,8 +4,9 @@ The port (``src/repro_torch``) and ``chip_smoke.py`` import nothing of JAX
 or of the JAX package, call no library attention (``chip_smoke.py`` times
 one call as its yardstick, in ``library_ms`` only) and no
 ``torch.compile``, and never fall back: on a host with no CUDA the entry
-points raise unless asked for the CPU, and the kernel wrapper raises on
-any tensor it cannot launch on instead of running the plain version."""
+points raise unless asked for the CPU, and the kernel wrappers (flash,
+chunked, SSD) raise on any tensor they cannot launch on instead of running
+the plain version."""
 import ast
 from pathlib import Path
 
@@ -16,7 +17,9 @@ torch.set_num_threads(2)
 
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import chunked  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
 from repro_torch.models.config import get_smoke_config  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
 
@@ -98,3 +101,36 @@ def test_kernel_wrapper_raises_instead_of_falling_back():
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_cuda(cpu, k, k)
     assert fa.launches == before
+
+
+@pytest.mark.parametrize("wrapper", [fa.flash_attention_cuda,
+                                     chunked.chunked_attention_cuda],
+                         ids=["flash", "chunked"])
+def test_attention_wrappers_raise_instead_of_falling_back(wrapper):
+    """Both attention wrappers, on meta tensors and on a CPU/meta mix, at
+    zamba2's head dim: a raise, no launch, no plain version."""
+    _needs_no_cuda()
+    module = fa if wrapper is fa.flash_attention_cuda else chunked
+    before = module.launches
+    k = torch.empty(1, 2, 8, 112, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        wrapper(k, k, k)
+    with pytest.raises(ValueError, match="CUDA"):
+        wrapper(torch.zeros(1, 2, 8, 112), k, k)
+    assert module.launches == before
+
+
+def test_ssd_wrapper_raises_instead_of_falling_back():
+    _needs_no_cuda()
+    before = sk.launches
+    b, l, h, p, n = 1, 8, 2, 16, 8
+    meta = dict(device="meta")
+    args = [torch.empty(b, l, h, p, **meta), torch.empty(b, l, h, **meta),
+            torch.empty(h, **meta), torch.empty(b, l, n, **meta),
+            torch.empty(b, l, n, **meta)]
+    with pytest.raises(ValueError, match="CUDA"):
+        sk.ssd_cuda(*args)
+    args[2] = torch.zeros(h)
+    with pytest.raises(ValueError, match="CUDA"):
+        sk.ssd_cuda(*args)
+    assert sk.launches == before

@@ -1,6 +1,7 @@
-"""The port's serving engine against the JAX reference's on the CPU: the same
-requests give the same tokens in fp32, mid-run admission is exact, a reused
-slot starts clean, and deadline handling and observability match."""
+"""The port's serving engine against the JAX reference's on the CPU, for the
+dense, ssm and hybrid smoke configs: the same requests give the same tokens
+in fp32, mid-run admission is exact, a reused slot starts clean, and
+deadline handling and observability match."""
 import numpy as np
 import pytest
 
@@ -21,7 +22,9 @@ from repro_torch.models.config import get_smoke_config  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
 from repro_torch.serve import Request, ServeEngine, SimClock, step_need_s  # noqa: E402
 
-ARCHS = ["stablelm-3b", "phi3-medium-14b"]
+# dense, the Mamba2 stack, and the zamba2 hybrid (whose lane reset must wipe
+# the SSM conv/state leaves as well as the shared attention's K/V)
+ARCHS = ["stablelm-3b", "phi3-medium-14b", "mamba2-1.3b", "zamba2-7b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
