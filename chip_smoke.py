@@ -7,12 +7,15 @@ machine with a CUDA GPU (Hopper, ``sm_90a``).
 Phases, each printing one JSON line:
   build   : compile the CUDA kernels (flash attention, chunked two-pass
             attention, SSD scan) from the checkout's sources, timed, with
-            the compiler's output (ptxas registers and spills).
+            the compiler's output (ptxas registers and spills), and count
+            the tensor-core instructions (HGMMA, HMMA) in each kernel's
+            SASS: every bf16 attention body must hold some.
   kernel  : the flash-attention kernel against its plain version
-            (``attention_ref``) on the six reference cases in fp32 (2e-5)
-            and bf16 (2e-2) and at phi3-medium-14b's prefill shape; kernel,
-            plain and library (``scaled_dot_product_attention``, the
-            yardstick only) times and the card's bound.
+            (``attention_ref``) on the six reference cases in fp32 (2e-5,
+            the CUDA-core body) and bf16 (2e-2, the tensor-core body) and
+            at phi3-medium-14b's prefill shape; kernel, plain and library
+            (``scaled_dot_product_attention``, the yardstick only) times,
+            the card's bound, TFLOP/s and the share of the bound.
   prefill : phi3-medium-14b at full width, bf16, random weights from a
             seeded generator: ``Model.prefill`` of 4 x 2048 tokens, 40
             kernel launches; every layer's cached K/V at every position
@@ -32,7 +35,8 @@ Then phi3's 28 GB are freed and zamba2-7b (Mamba2 + shared attention) runs:
             kernels at zamba2's shared-attention shape (head dim 112);
             kernel, plain and library times and the bound.
   ssd_kernel : the SSD kernel against ``ssd_ref_sequential`` on the four
-            reference cases (fp32 1e-4, bf16 5e-2) and at zamba2's and
+            reference cases (fp32 1e-4, bf16 5e-2), from zero and from a
+            random initial state, and at zamba2's and
             mamba2-1.3b's full-width layer shapes (y 1e-2 and state 1e-3
             relative max-norm); kernel and plain times and the bound.
   prefill : zamba2-7b at full width and depth, bf16, seeded random
@@ -50,8 +54,9 @@ Then phi3's 28 GB are freed and zamba2-7b (Mamba2 + shared attention) runs:
   decode, serve, profile : as for phi3; request 0's solo run has the
             same four slots, and in fp32 its solo runs with one and with
             four slots must agree (see ``phase_serve``).
-Then the card's name and power limit, one JSON line of kernel records,
-and the result line. Any failure raises and exits non-zero; without a
+Then the card's name and power limit, one JSON line of kernel records
+(each with its body per dtype, ``design``, its TFLOP/s and its share of
+the bound), and the result line. Any failure raises and exits non-zero; without a
 CUDA device it exits 1 before any phase.
 """
 from __future__ import annotations
@@ -60,6 +65,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -70,6 +76,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+
+from torch.utils import cpp_extension  # noqa: E402
 
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import chunked as ca  # noqa: E402
@@ -152,6 +160,14 @@ PLAIN_REPS_SLOW = 5              # the sequential SSD recurrence, 2048 steps
 # dense bf16 tensor-core FLOP/s and HBM bytes/s of the one card this script
 # knows (NVIDIA's data sheet, SXM part, 700 W); any other card is refused
 PEAKS = {"NVIDIA H100 80GB HBM3": (989e12, 3.35e12)}
+# the body each kernel runs per dtype: "wgmma" (Hopper's warpgroup MMA on
+# the tensor cores), "simt" (fp32 multiply-adds on the CUDA cores)
+ATTN_DESIGN = {"float32": "simt", "bfloat16": "wgmma"}
+SSD_DESIGN = {"float32": "simt", "bfloat16": "simt"}
+# a kernel's mangled SASS name: its template, then its arguments (f: fp32,
+# 13__nv_bfloat16: bf16, Li<d>E: the head dim)
+SASS_FN = re.compile(r"(flash_fwd_tc|chunked_fwd_tc|flash_fwd|chunked_fwd|"
+                     r"ssd_fwd)I(\w*?)EEv")
 SEED = 0
 DEVICE = "cuda"
 
@@ -210,12 +226,45 @@ def smi_name_power() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def sass_mma_counts() -> dict[str, dict[str, int]]:
+    """Tensor-core instructions (HGMMA: warpgroup MMA; HMMA: warp MMA) in
+    the SASS of every kernel of the built extension, by readable name."""
+    lib = build.BUILD_DIR / "repro_torch_kernels.so"
+    tool = Path(cpp_extension.CUDA_HOME or "/usr/local/cuda") / "bin" / \
+        "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = SASS_FN.search(line)
+            args = fn.group(2) if fn else ""
+            dtype = "float32" if args.startswith("f") else "bfloat16"
+            dim = re.search(r"Li(\d+)E", args + "E")
+            name = f"{fn.group(1) if fn else line.split()[-1]}<{dtype}" + (
+                f", {dim.group(1)}>" if dim else ">")
+            counts[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name is not None:
+            for op in counts[name]:
+                counts[name][op] += f" {op}." in line
+    return counts
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     build.extension(verbose=True)
-    log(phase="build", seconds=time.perf_counter() - t0,
+    seconds = time.perf_counter() - t0
+    counts = sass_mma_counts()
+    bodies = [k for k in counts if k.split("<")[0] in
+              ("flash_fwd_tc", "chunked_fwd_tc")]
+    require(len(bodies) == 2 * len(fa.HEAD_DIMS),
+            f"bf16 attention bodies in the SASS: {bodies}")
+    require(all(counts[k]["HGMMA"] > 0 for k in bodies),
+            f"a bf16 attention body without tensor-core instructions: "
+            f"{counts}")
+    log(phase="build", seconds=seconds,
         sources=[str(s.relative_to(Path(__file__).resolve().parent))
-                 for s in build.SOURCES])
+                 for s in build.SOURCES], sass_mma=counts)
 
 
 def phase_kernel(gen, peaks: tuple[float, float]) -> dict:
@@ -247,11 +296,11 @@ def phase_kernel(gen, peaks: tuple[float, float]) -> dict:
     flops, nbytes = attn_work(b, hq, hkv, s, d)
     rec = kernel_record("flash_attention", "flash_attention/csrc/"
                         "flash_attention.cu", "flash_attention/kernel.py:109",
-                        err, ms, plain_ms, lib_ms, flops, nbytes, peaks)
+                        err, ms, plain_ms, lib_ms, flops, nbytes, peaks,
+                        ATTN_DESIGN)
     log(phase="kernel", cases=len(errs), max_abs_err_cases=errs,
         shape=list(PHI3_ATTN), dtype="bfloat16", causal=True,
-        tflops=flops / ms / 1e9, **{k: v for k, v in rec.items()
-                                    if k != "launches"})
+        **{k: v for k, v in rec.items() if k != "launches"})
     return rec
 
 
@@ -271,16 +320,18 @@ def bound(flops, nbytes, peaks) -> tuple[float, str]:
 
 
 def kernel_record(name, source, replaces, err, ms, plain_ms, lib_ms, flops,
-                  nbytes, peaks) -> dict:
+                  nbytes, peaks, design) -> dict:
     """One entry of the kernels line; ``launches`` is filled in by the main
-    path's run."""
+    path's run. ``tflops`` is the algorithm's work over the kernel's time,
+    ``share_of_bound`` the bound over the kernel's time."""
     bound_ms, bound_by = bound(flops, nbytes, peaks)
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/" + source,
             "replaces": "src/repro/kernels/" + replaces,
             "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "design": design,
+            "tflops": flops / ms / 1e9, "share_of_bound": bound_ms / ms}
 
 
 def kv_rel_err(cache, ref, s: int) -> tuple[float, float, int]:
@@ -563,15 +614,15 @@ def phase_attention_kernels(gen, peaks, fa_rec: dict) -> dict:
     fa_rec["zamba2_shape"] = {
         "shape": list(ZAMBA_ATTN), "max_abs_err": err_fa, "ms": fa_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": lib_ms}
+        "library_ms": lib_ms, "tflops": flops / fa_ms / 1e9,
+        "share_of_bound": bound_ms / fa_ms}
     rec = kernel_record("chunked_attention", "flash_attention/csrc/"
                         "chunked_attention.cu",
                         "flash_attention/chunked.py:110", err_ca, ca_ms,
-                        plain_ms, lib_ms, flops, nbytes, peaks)
+                        plain_ms, lib_ms, flops, nbytes, peaks, ATTN_DESIGN)
     log(phase="attention_kernels", cases=len(errs),
         chunked_max_abs_err_cases=errs, shape=list(ZAMBA_ATTN),
         dtype="bfloat16", causal=True, flash_zamba2=fa_rec["zamba2_shape"],
-        flash_tflops=flops / fa_ms / 1e9, chunked_tflops=flops / ca_ms / 1e9,
         **{k: v for k, v in rec.items() if k != "launches"})
     return rec
 
@@ -612,9 +663,10 @@ def rel_max(a, b) -> float:
 
 
 def phase_ssd_kernel(gen, peaks) -> dict:
-    """The SSD kernel against its plain version on the reference cases and
-    at zamba2's and mamba2-1.3b's full-width layer shapes."""
-    errs = {}
+    """The SSD kernel against its plain version on the reference cases,
+    from zero and from an N(0, 1) initial state, and at zamba2's and
+    mamba2-1.3b's full-width layer shapes."""
+    errs, errs_init = {}, {}
     for case in SSD_CASES:
         b, l, h, p, n, chunk = case
         for dtype in (torch.float32, torch.bfloat16):
@@ -625,14 +677,19 @@ def phase_ssd_kernel(gen, peaks) -> dict:
             a = -(0.5 + 1.5 * torch.rand((h,), generator=gen, device=DEVICE))
             bm, cm = (torch.randn((b, l, n), generator=gen,
                                   device=DEVICE).to(dtype) for _ in range(2))
-            y, st = sk.ssd_cuda(x, dt, a, bm, cm, chunk=chunk)
-            yr, sr = ssd_ref_sequential(x, dt, a, bm, cm)
-            torch.cuda.synchronize()
-            err = max(max_err(y, yr), max_err(st, sr))
-            require(y.shape == x.shape and y.dtype == dtype
-                    and st.shape == (b, h, p, n), (case, y.shape, st.shape))
-            require(err < SSD_TOL[dtype], ("ssd", case, dtype, err))
-            errs[f"{case}/{str(dtype)[6:]}"] = err
+            s0 = torch.randn((b, h, p, n), generator=gen, device=DEVICE)
+            for init, out in ((None, errs), (s0, errs_init)):
+                y, st = sk.ssd_cuda(x, dt, a, bm, cm, chunk=chunk,
+                                    init_state=init)
+                yr, sr = ssd_ref_sequential(x, dt, a, bm, cm, init)
+                torch.cuda.synchronize()
+                err = max(max_err(y, yr), max_err(st, sr))
+                require(y.shape == x.shape and y.dtype == dtype
+                        and st.shape == (b, h, p, n),
+                        (case, y.shape, st.shape))
+                require(err < SSD_TOL[dtype],
+                        ("ssd", case, dtype, init is not None, err))
+                out[f"{case}/{str(dtype)[6:]}"] = err
 
     shapes = {}
     for arch in SSD_ARCHS:
@@ -656,7 +713,7 @@ def phase_ssd_kernel(gen, peaks) -> dict:
         shapes[arch] = kernel_record(
             "ssd_scan", "ssd_scan/csrc/ssd_scan.cu",
             "ssd_scan/kernel.py:93", max(max_err(y, yr), max_err(st, sr)),
-            ms, plain_ms, None, flops, nbytes, peaks)
+            ms, plain_ms, None, flops, nbytes, peaks, SSD_DESIGN)
         shapes[arch].update(shape=[b, l, h, p, n, q], y_rel_err=y_rel,
                             state_rel_err=st_rel, gflop=flops / 1e9,
                             mbytes=nbytes / 1e6)
@@ -664,8 +721,9 @@ def phase_ssd_kernel(gen, peaks) -> dict:
     rec = dict(shapes["zamba2-7b"])
     rec["mamba2_shape"] = {k: shapes["mamba2-1.3b"][k] for k in (
         "shape", "max_abs_err", "y_rel_err", "state_rel_err", "ms",
-        "plain_ms", "bound_ms", "bound_by")}
+        "plain_ms", "bound_ms", "bound_by", "tflops", "share_of_bound")}
     log(phase="ssd_kernel", cases=len(errs), max_abs_err_cases=errs,
+        max_abs_err_cases_init_state=errs_init,
         y_rel_err_limit=SSD_Y_REL_TOL, state_rel_err_limit=SSD_STATE_REL_TOL,
         shapes=shapes)
     return rec

@@ -24,11 +24,11 @@ cudaError_t chunked_attention_fwd_launch(
 
 cudaError_t ssd_scan_fwd_launch(
     const void* x, const float* dt, const float* a, const void* bm,
-    const void* cm, void* y, float* state, int dtype, int batch, int L,
-    int H, int P, int N, int Q, const int64_t* x_strides,
-    const int64_t* dt_strides, const int64_t* b_strides,
-    const int64_t* c_strides, const int64_t* y_strides,
-    cudaStream_t stream);
+    const void* cm, void* y, float* state, const float* init_state,
+    int dtype, int batch, int L, int H, int P, int N, int Q,
+    const int64_t* x_strides, const int64_t* dt_strides,
+    const int64_t* b_strides, const int64_t* c_strides,
+    const int64_t* y_strides, cudaStream_t stream);
 
 namespace {
 
@@ -72,12 +72,14 @@ void chunked_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
                 o, causal, window, scale);
 }
 
-// x/y (B, L, H, P), dt (B, L, H), a (H,), B/C (B, L, N), state (B, H, P, N)
-// contiguous; last dims contiguous. The Python wrapper has checked them.
+// x/y (B, L, H, P), dt (B, L, H), a (H,), B/C (B, L, N), state and
+// init_state (B, H, P, N) contiguous, init_state empty for a zero start;
+// last dims contiguous. The Python wrapper has checked them.
 void ssd_scan_fwd(const torch::Tensor& x, const torch::Tensor& dt,
                   const torch::Tensor& a, const torch::Tensor& bm,
                   const torch::Tensor& cm, const torch::Tensor& y,
-                  const torch::Tensor& state, int64_t chunk) {
+                  const torch::Tensor& state, const torch::Tensor& init_state,
+                  int64_t chunk) {
   const c10::cuda::CUDAGuard guard(x.device());
   const std::array<int64_t, 3> xs{x.stride(0), x.stride(1), x.stride(2)},
       dts{dt.stride(0), dt.stride(1), dt.stride(2)},
@@ -87,7 +89,8 @@ void ssd_scan_fwd(const torch::Tensor& x, const torch::Tensor& dt,
   const int dtype = x.scalar_type() == torch::kBFloat16 ? 1 : 0;
   const cudaError_t err = ssd_scan_fwd_launch(
       x.data_ptr(), dt.data_ptr<float>(), a.data_ptr<float>(), bm.data_ptr(),
-      cm.data_ptr(), y.data_ptr(), state.data_ptr<float>(), dtype,
+      cm.data_ptr(), y.data_ptr(), state.data_ptr<float>(),
+      init_state.numel() ? init_state.data_ptr<float>() : nullptr, dtype,
       x.size(0), x.size(1), x.size(2), x.size(3), bm.size(2), chunk,
       xs.data(), dts.data(), bs.data(), cs.data(), ys.data(),
       c10::cuda::getCurrentCUDAStream().stream());

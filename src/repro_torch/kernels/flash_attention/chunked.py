@@ -5,7 +5,9 @@ two-pass softmax (K read twice, no accumulator rescale), a separate
 implementation point on the scheduler's variant axis.
 
 CPU tensors go to the plain version (``ref.attention_ref``); CUDA tensors
-launch the kernel or raise. ``launches`` counts the kernel's launches.
+launch the kernel or raise. Like the flash kernel it runs bf16 on the
+tensor cores and fp32 on the CUDA cores; ``launches`` counts the kernel's
+launches.
 """
 from __future__ import annotations
 

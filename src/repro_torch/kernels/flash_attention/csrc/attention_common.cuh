@@ -1,19 +1,43 @@
 // Definitions shared by the two attention kernels of the port
 // (flash_attention.cu: one pass, online softmax; chunked_attention.cu: two
-// passes, lazy softmax): tile sizes, the parameter block and the head-dim
-// dispatch. Both compute softmax(q k^T / sqrt(d) + mask) v for
+// passes, lazy softmax). Both compute softmax(q k^T / sqrt(d) + mask) v for
 // q (B, Hq, Sq, D) and k/v (B, Hkv, Skv, D), causal and/or sliding window,
-// GQA, on the same grid: one block per (q tile of BQ rows, q head, batch),
-// TPR threads per query row, each owning an interleaved D/TPR slice of the
-// head dim (dims i*4*TPR + part*4 + c), so K/V rows are read from shared
-// memory as conflict-free float4s and a row's dot product is finished with
-// two warp shuffles. Inputs are read through element strides in the
-// (B, S, H, D) layout with the last dim contiguous; ragged tails are load
-// and store masks, not padding.
+// GQA, reading the inputs through element strides in the (B, S, H, D)
+// layout with the last dim contiguous; ragged tails are load and store
+// masks, not padding. Each kernel has two bodies, chosen by dtype in its
+// launcher:
+//
+// fp32, the SIMT body (namespace attn): one block per (q tile of BQ rows,
+// q head, batch), TPR threads per query row, each owning an interleaved
+// D/TPR slice of the head dim (dims i*4*TPR + part*4 + c), so K/V rows are
+// read from shared memory as conflict-free float4s and a row's dot product
+// is finished with two warp shuffles. fp32 stays on the CUDA cores: TF32
+// tensor cores keep ~3 decimal digits and cannot meet the reference's 2e-5
+// fp32 tolerance, and fp32 is the verification dtype, not the serving one.
+//
+// bf16, the tensor-core body (namespace attn::tc): Hopper's warpgroup MMA
+// (wgmma.mma_async m64nNk16, bf16 in, fp32 accumulate). One block of NWG
+// consumer warpgroups owns BQ = 64 * NWG query rows; the Q tile is copied
+// to shared memory once, and K/V tiles of BK rows stream through a
+// two-stage ring filled by cp.async (16 bytes a thread), so tile j+1 loads
+// while tile j's products run. S = Q K^T takes both operands from shared
+// memory (K is D-contiguous: the K-major B operand); O += P V takes P from
+// registers (the S accumulator converted to bf16 in place: the fp32
+// accumulator fragment and the bf16 A fragment order their elements
+// alike) and V from shared memory (D-contiguous: the MN-major B operand,
+// transpose bit set). Shared tiles use the 128-byte swizzle: 64-column
+// atoms of 128-byte rows, each row's 16-byte chunks permuted by the row
+// index mod 8, so that a warp's copies read whole rows from device memory
+// and fill shared memory without bank conflicts (the unswizzled layout of
+// 8 x 16-byte core matrices makes a warp either read eight rows at once or
+// write eight times into the same banks). D = 112 (224 bytes a row)
+// and D = 32 do not fill their last atom: the tile is padded to 128 and 64
+// columns, the padding zeroed once and never read.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "../../csrc/dtype.cuh"
@@ -63,6 +87,461 @@ inline Params make_params(const void* q, const void* k, const void* v,
     case 112: KERNEL<T, 112><<<grid, attn::NTHREADS, 0, stream>>>(p); break; \
     case 128: KERNEL<T, 128><<<grid, attn::NTHREADS, 0, stream>>>(p); break; \
     default: return cudaErrorInvalidValue;                                  \
+  }
+
+
+// ---------------------------------------------------------------- tensor cores
+namespace tc {
+
+constexpr int NWG = 2;               // consumer warpgroups per block
+constexpr int BQ = 64 * NWG;         // query rows per block
+constexpr int BK = 64;               // kv rows per ring stage
+constexpr int NTHREADS = 128 * NWG;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Head dims are stored padded to whole 64-column swizzle atoms (32 -> 64,
+// 112 -> 128). The padding is zeroed and never read: the k-steps of
+// S = Q K^T stop at D, and P V's N is D.
+template <int D>
+__host__ __device__ constexpr int padded() { return (D + 63) / 64 * 64; }
+
+// Bytes of a tile of `rows` rows.
+template <int D>
+__host__ __device__ constexpr int tile_bytes(int rows) { return rows * padded<D>() * 2; }
+
+// Dynamic shared memory of one block: the Q tile, two stages of K and V,
+// and 1 KB to align the tiles to the swizzle pattern's 1024 bytes.
+template <int D>
+__host__ __device__ constexpr int smem_bytes() { return tile_bytes<D>(BQ + 4 * BK) + 1024; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// Byte offset of 16-byte chunk c (columns 8c .. 8c + 7) of row r in a tile
+// of ROWS rows: 64-column atoms of ROWS x 128 bytes, one after the other,
+// each row's eight chunks permuted by c ^ (r % 8) (the 128-byte swizzle).
+template <int ROWS>
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+  return (c >> 3) * (ROWS * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// Rows r0 .. r0+ROWS of a (S, D) bf16 head slice with row stride ss (in
+// elements) into the swizzled tile at shared address dst, 16 bytes a copy;
+// rows at or past `valid` are zero-filled (source size 0). Consecutive
+// threads copy consecutive 16 bytes of a row (coalesced reads), and eight
+// of them fill one 128-byte row of the tile (no bank conflict).
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* g,
+                                          int64_t ss, int r0, int valid) {
+  constexpr int CHUNKS = D / 8;      // 16-byte chunks per row
+  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += NTHREADS) {
+    const int r = idx / CHUNKS;
+    const int c = idx - r * CHUNKS;
+    const int ok = r0 + r < valid;
+    const __nv_bfloat16* src = g + (ok ? r0 + r : 0) * ss + c * 8;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst + swizzled<ROWS>(r, c)), "l"(src), "r"(ok ? 16 : 0));
+  }
+}
+
+// Zero the padding chunks of a tile of ROWS rows (none where D fills its
+// atoms).
+template <int D, int ROWS>
+__device__ __forceinline__ void zero_pad(uint32_t dst) {
+  constexpr int PAD = (padded<D>() - D) / 8;
+  if constexpr (PAD > 0) {
+    for (int idx = threadIdx.x; idx < ROWS * PAD; idx += NTHREADS) {
+      const int r = idx / PAD;
+      asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};\n"
+                   :: "r"(dst + swizzled<ROWS>(r, D / 8 + idx - r * PAD)), "r"(0));
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// This thread's copies have landed and are visible to the async proxy
+// (wgmma reads shared memory through it); the caller's __syncthreads()
+// then makes every thread's copies visible.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets, layout type 1 (128-byte
+// swizzle) in bits 62-63. Every atom starts on a 1024-byte boundary.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lead,
+                                              uint32_t stride) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lead >> 4) << 16 |
+         static_cast<uint64_t>(stride >> 4) << 32 | 1ull << 62;
+}
+
+// A tile read as a K-major operand (its rows are M or N, K is the head
+// dim: Q for S = Q K^T, and K): 8-row groups 1024 bytes apart; the leading
+// offset is unused by a swizzled K-major operand.
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
+  return make_desc(addr, 16, 1024);
+}
+
+// Descriptor units (16 bytes) from k-step 0 to k-step kk (16 columns, 32
+// bytes) of a K-major tile of ROWS rows: 4 k-steps per atom.
+template <int ROWS>
+__device__ __forceinline__ uint32_t k_step(int kk) {
+  return (kk >> 2) * (ROWS * 8) + (kk & 3) * 2;
+}
+
+// A tile read as an MN-major operand (K is its rows, N the head dim: V
+// for O += P V): 8-row groups of K 1024 bytes apart (stride), 64-column
+// atoms of N ROWS * 128 bytes apart (leading). A k-step of 16 rows is
+// 2048 bytes, 128 units.
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
+  return make_desc(addr, ROWS * 128, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pin accumulator registers in place around the asynchronous products, so
+// the compiler moves no read or write of them across the issue or the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// d (64 x 64, fp32) {+}= A (64 x 16) * B (16 x 64), A and B K-major in
+// shared memory; d is overwritten where scale_d is 0.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x N, fp32) += A (64 x 16, bf16 in registers) * B (16 x N), B
+// MN-major in shared memory (transpose bit set).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<112>(float (&d)[56],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// The accumulator fragment of m64nNk16 (fp32, N / 2 values a thread): thread
+// t of the warpgroup holds rows 16 * (t / 32) + (t % 32) / 4 + {0, 8}; value
+// 4 j + 2 h + e is row +8h, column 8 j + 2 (t % 4) + e. The A fragment of P
+// for k-step kk (columns 16 kk .. 16 kk + 15) is the same thread's values
+// 8 kk .. 8 kk + 7 in pairs, low half the lower column.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Whether any (query row, kv position) pair of the 64 rows from r0 and the
+// BK positions from k0 is masked: only such tiles pay for the mask.
+__device__ __forceinline__ bool tile_needs_mask(const Params& p, int r0,
+                                                int k0) {
+  return k0 + BK > p.skv || (p.causal && k0 + BK - 1 > r0) ||
+         (p.window > 0 && k0 <= r0 + 63 - p.window);
+}
+
+// The kv range [lo, hi) the mask can reach from the `rows` query rows at
+// q0: causality bounds the top, the window the bottom.
+__device__ __forceinline__ void reach(const Params& p, int q0, int rows,
+                                      int& lo, int& hi) {
+  hi = p.causal ? min(p.skv, q0 + rows) : p.skv;
+  lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+}
+
+// Scores of one tile in the log2 domain for this thread's values:
+// s * scale * log2(e), -inf where the mask hides the pair.
+template <int NS>
+__device__ __forceinline__ void scale_and_mask(float (&s)[NS], const Params& p,
+                                               bool masked, int row0, int k0,
+                                               float scale_log2) {
+  const int col0 = k0 + 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    float v = s[i] * scale_log2;
+    if (masked) {
+      const int qp = row0 + 8 * ((i >> 1) & 1);
+      const int kp = col0 + 8 * (i >> 2) + (i & 1);
+      const bool ok = kp < p.skv && (!p.causal || kp <= qp) &&
+                      (p.window <= 0 || kp > qp - p.window);
+      v = ok ? v : -INFINITY;
+    }
+    s[i] = v;
+  }
+}
+
+// The row max over the quad of threads that share a row.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// P = 2^(s - m) for this thread's values (0 where s is -inf; a row whose
+// max is still -inf subtracts 0), rounded to bf16 and packed as the A
+// fragments of P V; l gains the sum of the rounded values, so the
+// normaliser sums exactly the P that multiplies V.
+template <int NS>
+__device__ __forceinline__ void exp_pack(const float (&s)[NS], const float (&m)[2],
+                                         float (&l)[2],
+                                         uint32_t (&pa)[NS / 8][4]) {
+  float base[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) base[h] = m[h] == -INFINITY ? 0.f : m[h];
+#pragma unroll
+  for (int kk = 0; kk < NS / 8; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {    // r: (column block 2kk + r / 2, row +8 (r % 2))
+      const int i = 8 * kk + 4 * (r >> 1) + 2 * (r & 1);
+      const float lo = exp2f(s[i] - base[r & 1]);
+      const float hi = exp2f(s[i + 1] - base[r & 1]);
+      const uint32_t packed = pack_bf16(lo, hi);
+      const __nv_bfloat162 rounded = *reinterpret_cast<const __nv_bfloat162*>(&packed);
+      const float2 f = __bfloat1622float2(rounded);
+      l[r & 1] += f.x + f.y;
+      pa[kk][r] = packed;
+    }
+  }
+}
+
+// S = Q K^T for one warpgroup over the head dim (D / 16 k-steps), waited
+// for.
+template <int D>
+__device__ __forceinline__ void qk(float (&s)[BK / 2], uint64_t dq, uint64_t dk) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64(s, dq + k_step<BQ>(kk), dk + k_step<BK>(kk), kk);
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(s);
+}
+
+// O += P V for one warpgroup over a kv tile (BK / 16 k-steps of 16 rows,
+// 2048 bytes = 128 descriptor units each), waited for.
+template <int D>
+__device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&pa)[BK / 16][4],
+                                   uint64_t dv) {
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<D>(o, pa[kk], dv + 128 * kk);
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(o);
+}
+
+// What one block of a bf16 body works on: its shared tiles (1024-byte
+// aligned: the Q tile, then two stages of a K and a V tile), its head's
+// slices of q, k and v, its warpgroup's rows, and the n kv tiles from lo
+// that the mask lets its rows reach. The query tiles run in reverse, the
+// longest causal rows first.
+template <int D>
+struct Block {
+  static constexpr int TILE = tile_bytes<D>(BK);  // bytes of one K or V stage
+  uint32_t q_s, kv_s;
+  const __nv_bfloat16 *qg, *kg, *vg;
+  int q0, r0, row0, lo, n, wlo, whi;
+  uint64_t dq;                       // this warpgroup's rows of the Q tile
+
+  __device__ Block(const Params& p, unsigned char* smem) {
+    q_s = (smem_addr(smem) + 1023) & ~1023u;
+    kv_s = q_s + tile_bytes<D>(BQ);
+    // the warpgroup index, read from lane 0 so the compiler sees it uniform
+    const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+    const int h = blockIdx.y, b = blockIdx.z, hkv = h / p.group;
+    qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
+    kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hkv * p.k_sh;
+    vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hkv * p.v_sh;
+    q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+    r0 = q0 + 64 * wg;
+    row0 = r0 + 16 * ((threadIdx.x % 128) / 32) + (threadIdx.x % 32) / 4;
+    int hi;
+    reach(p, q0, BQ, lo, hi);
+    reach(p, r0, 64, wlo, whi);
+    lo = lo / BK * BK;
+    n = hi > lo ? (hi - lo + BK - 1) / BK : 0;
+    dq = desc_k_major(q_s + wg * 64 * 128);  // rows 64 wg .. of each atom
+  }
+
+  // Zero every tile's padding and start copying the Q tile.
+  __device__ void load_q(const Params& p) const {
+    zero_pad<D, BQ>(q_s);
+    for (int st = 0; st < 4; ++st) zero_pad<D, BK>(kv_s + st * TILE);
+    load_tile<D, BQ>(q_s, qg, p.q_ss, q0, p.sq);
+  }
+
+  __device__ uint32_t k_stage(int st) const { return kv_s + (st & 1) * 2 * TILE; }
+  __device__ uint32_t v_stage(int st) const { return k_stage(st) + TILE; }
+
+  // Whether some row of this warpgroup sees the kv tile at k0.
+  __device__ bool sees(int k0) const { return k0 < whi && k0 + BK > wlo; }
+};
+
+// O / max(l, 1e-30) into the output rows (a fully masked row gives 0);
+// this thread's two rows and D / 4 columns, rows past Sq skipped.
+template <int D>
+__device__ __forceinline__ void store_o(const float (&o)[D / 2], const float (&l)[2],
+                                        const Params& p, __nv_bfloat16* og,
+                                        int row0) {
+  const float lsum[2] = {quad_sum(l[0]), quad_sum(l[1])};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qp = row0 + 8 * h;
+    if (qp >= p.sq) continue;
+    const float inv = 1.f / fmaxf(lsum[h], 1e-30f);
+    __nv_bfloat16* orow = og + qp * p.o_ss + 2 * (threadIdx.x & 3);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
+          o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+    }
+  }
+}
+
+// 16-byte copies need 16-byte aligned rows: every base pointer and every
+// (batch, seq, head) stride of q, k, v and o.
+inline bool aligned16(const Params& p) {
+  const int64_t strides[12] = {p.q_sb, p.q_ss, p.q_sh, p.k_sb, p.k_ss, p.k_sh,
+                               p.v_sb, p.v_ss, p.v_sh, p.o_sb, p.o_ss, p.o_sh};
+  for (int64_t s : strides)
+    if (s % 8) return false;
+  const void* ptrs[4] = {p.q, p.k, p.v, p.o};
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16) return false;
+  return true;
+}
+
+// Launch the bf16 body kernel<D>: opt into its dynamic shared memory (over
+// 48 KB at every head dim) and launch one block per (BQ query rows, q head,
+// batch). Returns the first CUDA error.
+template <int D>
+cudaError_t launch(void (*kernel)(Params), const Params& p, int batch, int hq,
+                   cudaStream_t stream) {
+  if (!aligned16(p)) return cudaErrorMisalignedAddress;
+  constexpr int bytes = smem_bytes<D>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((p.sq + BQ - 1) / BQ, hq, batch), NTHREADS, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// Launch the bf16 body KERNEL<D> for the head dims both kernels
+// instantiate, returning its error.
+#define ATTN_DISPATCH_TC(KERNEL, d, p, batch, hq, stream)                      \
+  switch (d) {                                                                 \
+    case 32: return attn::tc::launch<32>(KERNEL<32>, p, batch, hq, stream);    \
+    case 64: return attn::tc::launch<64>(KERNEL<64>, p, batch, hq, stream);    \
+    case 112: return attn::tc::launch<112>(KERNEL<112>, p, batch, hq, stream); \
+    case 128: return attn::tc::launch<128>(KERNEL<128>, p, batch, hq, stream); \
+    default: return cudaErrorInvalidValue;                                     \
   }
 
 }  // namespace attn

@@ -16,16 +16,22 @@
 //
 // What bounds it on this card: as for the flash kernel, operations (2 S^2 d
 // flops per (batch, head) at S = 2048 against ~4 S d bytes), plus the
-// second pass's q.k products: ~1.5x the flash kernel's multiply-adds on the
-// fp32 CUDA cores (67 TFLOP/s), not the tensor cores. What the design does
-// about it: both passes stop at the causal top and start at the window's
-// bottom (the reference runs every kv chunk in both passes,
-// chunked.py:66-84; the loop bounds compute the same function), K/V tiles
-// sit in shared memory, and the scores and accumulator stay in registers.
+// second pass's q.k products: ~1.5x the flash kernel's multiply-adds. The
+// launcher picks the body by dtype (attention_common.cuh):
+// - bf16 runs chunked_fwd_tc on the tensor cores, on the flash kernel's
+//   tiles and two-stage cp.async ring: S = Q K^T by wgmma in both passes,
+//   P V by wgmma in pass 2. The ring walks the 2n steps of both passes as
+//   one sequence (K tiles for pass 1, K and V tiles for pass 2), so pass
+//   2's first tile loads during pass 1's last. P is rounded to bf16 for
+//   the product and l sums the rounded values.
+// - fp32 runs chunked_fwd, the first body, on the CUDA cores: TF32
+//   cannot meet the reference's 2e-5 fp32 tolerance.
+// Both passes stop at the causal top and start at the window's bottom (the
+// reference runs every kv chunk in both passes, chunked.py:66-84; the loop
+// bounds compute the same function).
 //
-// Layout: the flash kernel's (attention_common.cuh: one block per (q tile,
-// head, batch), TPR threads per query row, strided (B, S, H, D) reads,
-// masks instead of padding). Head dims 32, 64, 112 and 128.
+// Layout: the flash kernel's (strided (B, S, H, D) reads, masks instead of
+// padding). Head dims 32, 64, 112 and 128.
 #include "attention_common.cuh"
 
 namespace {
@@ -214,9 +220,71 @@ cudaError_t launch_typed(const Params& p, int batch, int hq, int d,
 
 }  // namespace
 
+// bf16 on the tensor cores (see the note at the top), beside the shared
+// machinery it uses.
+namespace attn::tc {
+namespace {
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1) chunked_fwd_tc(const Params p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const Block<D> blk(p, smem);
+  const int lo = blk.lo, n = blk.n;
+
+  // step st < n is pass 1 over tile st (K only), st >= n pass 2 over tile
+  // st - n (K and V)
+  blk.load_q(p);
+  if (n > 0) load_tile<D, BK>(blk.k_stage(0), blk.kg, p.k_ss, lo, p.skv);
+  cp_async_commit();
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // this thread's share until pass 2
+  float l[2] = {0.f, 0.f};
+  const float scale_log2 = p.scale * LOG2E;
+
+  for (int st = 0; st < 2 * n; ++st) {
+    const bool second = st >= n;
+    const int k0 = lo + (second ? st - n : st) * BK;
+    cp_async_wait_all();
+    __syncthreads();                 // step st landed; step st-1 is consumed
+    if (st + 1 < 2 * n) {
+      const int next = st + 1;
+      const int nk0 = lo + (next >= n ? next - n : next) * BK;
+      load_tile<D, BK>(blk.k_stage(next), blk.kg, p.k_ss, nk0, p.skv);
+      if (next >= n) load_tile<D, BK>(blk.v_stage(next), blk.vg, p.v_ss, nk0, p.skv);
+    }
+    cp_async_commit();
+    if (st == n) {                   // pass 1 is over: the row max is final
+      m[0] = quad_max(m[0]);
+      m[1] = quad_max(m[1]);
+    }
+    if (!blk.sees(k0)) continue;
+
+    float s[BK / 2];
+    qk<D>(s, blk.dq, desc_k_major(blk.k_stage(st)));
+    scale_and_mask(s, p, tile_needs_mask(p, blk.r0, k0), blk.row0, k0, scale_log2);
+    if (!second) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], s[i]);
+      continue;
+    }
+    uint32_t pa[BK / 16][4];
+    exp_pack(s, m, l, pa);
+    pv<D>(o, pa, desc_mn_major<BK>(blk.v_stage(st)));
+  }
+
+  store_o<D>(o, l, p, static_cast<__nv_bfloat16*>(p.o) + blockIdx.z * p.o_sb +
+                          blockIdx.y * p.o_sh, blk.row0);
+}
+
+}  // namespace
+}  // namespace attn::tc
+
 // Same interface as flash_attention_fwd_launch: dtype 0 = float32,
 // 1 = bfloat16; element strides ordered (batch, seq, head), head dim
-// contiguous. Returns the launch's cudaGetLastError().
+// contiguous. Returns the first CUDA error, as flash_attention_fwd_launch.
 cudaError_t chunked_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* o, int dtype,
     int batch, int sq, int skv, int hq, int hkv, int d,
@@ -227,6 +295,6 @@ cudaError_t chunked_attention_fwd_launch(
       q, k, v, o, sq, skv, hq, hkv, q_strides, k_strides, v_strides,
       o_strides, causal, window, scale);
   if (dtype == 0) return launch_typed<float>(p, batch, hq, d, stream);
-  if (dtype == 1) return launch_typed<__nv_bfloat16>(p, batch, hq, d, stream);
+  if (dtype == 1) { ATTN_DISPATCH_TC(attn::tc::chunked_fwd_tc, d, p, batch, hq, stream) }
   return cudaErrorInvalidValue;
 }

@@ -10,21 +10,28 @@
 // What bounds it on this card: at prefill shapes (S = 2048, d = 128) the
 // work is ~2 S^2 d flops per (batch, head) against ~4 S d bytes, far above
 // the H100's ~295 flops/byte balance point, so it is bound by operations.
-// This first version runs them on the fp32 CUDA cores (67 TFLOP/s), not the
-// tensor cores (989 TFLOP/s bf16): simple and exact first, wgmma/TMA later.
-// What the design does about the bound: it never computes a kv tile that
-// the mask hides entirely (causal and window become loop bounds, halving
-// the causal work), keeps K/V tiles in shared memory so each is read from
-// device memory once per 32 query rows, and keeps scores, the running
-// statistics and the accumulator in registers.
+// The launcher picks the body by dtype (attention_common.cuh):
+// - bf16, the serving dtype, runs flash_fwd_tc on the tensor cores: per
+//   block two warpgroups of 64 query rows over a two-stage cp.async ring
+//   of 64-row K/V tiles in 128-byte-swizzled shared memory (coalesced
+//   copies, no bank conflicts); S = Q K^T and O += P V by wgmma with fp32
+//   accumulators in registers; the row max and sum on the accumulator
+//   fragment (two quad shuffles for the max; the sum is reduced once at
+//   the end). P is rounded to bf16 for the product and l sums the rounded
+//   values, so the normaliser and the weights of V agree. Only tiles the
+//   mask cuts (the causal diagonal, the window's edge, the ragged end)
+//   evaluate the mask; a warpgroup skips tiles none of its rows sees; the
+//   query tiles run in reverse, the longest causal rows first.
+// - fp32 runs flash_fwd, the first body, on the CUDA cores: TF32
+//   cannot meet the reference's 2e-5 fp32 tolerance.
+// Both never compute a kv tile the mask hides entirely: causal and window
+// become loop bounds, halving the causal work.
 //
-// Layout (attention_common.cuh, shared with chunked_attention.cu): one
-// block per (q tile of BQ rows, q head, batch), TPR threads per row, the
-// inputs read through strides in the (B, S, H, D) layout, so the caller
-// never materialises a transpose; the ragged tail of S is handled by
-// load/store masks, not padding. GQA: the kv head is q_head / group, K/V
-// are never repeated. Head dims 32, 64, 112 (zamba2's shared attention)
-// and 128.
+// Layout: the inputs are read through strides in the (B, S, H, D) layout,
+// so the caller never materialises a transpose; the ragged tail of S is
+// handled by load/store masks, not padding. GQA: the kv head is
+// q_head / group, K/V are never repeated. Head dims 32, 64, 112 (zamba2's
+// shared attention) and 128.
 #include "attention_common.cuh"
 
 namespace {
@@ -159,9 +166,75 @@ cudaError_t launch_typed(const Params& p, int batch, int hq, int d,
 
 }  // namespace
 
+// bf16 on the tensor cores (see the note at the top), beside the shared
+// machinery it uses.
+namespace attn::tc {
+namespace {
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1) flash_fwd_tc(const Params p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const Block<D> blk(p, smem);
+  const int lo = blk.lo, n = blk.n;
+
+  blk.load_q(p);
+  if (n > 0) {
+    load_tile<D, BK>(blk.k_stage(0), blk.kg, p.k_ss, lo, p.skv);
+    load_tile<D, BK>(blk.v_stage(0), blk.vg, p.v_ss, lo, p.skv);
+  }
+  cp_async_commit();
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  const float scale_log2 = p.scale * LOG2E;
+
+  for (int t = 0; t < n; ++t) {
+    const int k0 = lo + t * BK;
+    cp_async_wait_all();
+    __syncthreads();                 // tile t landed; tile t-1 is consumed
+    if (t + 1 < n) {
+      load_tile<D, BK>(blk.k_stage(t + 1), blk.kg, p.k_ss, k0 + BK, p.skv);
+      load_tile<D, BK>(blk.v_stage(t + 1), blk.vg, p.v_ss, k0 + BK, p.skv);
+    }
+    cp_async_commit();
+    if (!blk.sees(k0)) continue;
+
+    float s[BK / 2];
+    qk<D>(s, blk.dq, desc_k_major(blk.k_stage(t)));
+    scale_and_mask(s, p, tile_needs_mask(p, blk.r0, k0), blk.row0, k0, scale_log2);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      corr[r] = exp2f(m[r] - (mx[r] == -INFINITY ? 0.f : mx[r]));
+      m[r] = mx[r];
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+    uint32_t pa[BK / 16][4];
+    exp_pack(s, m, l, pa);
+    pv<D>(o, pa, desc_mn_major<BK>(blk.v_stage(t)));
+  }
+
+  store_o<D>(o, l, p, static_cast<__nv_bfloat16*>(p.o) + blockIdx.z * p.o_sb +
+                          blockIdx.y * p.o_sh, blk.row0);
+}
+
+}  // namespace
+}  // namespace attn::tc
+
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, ordered
 // (batch, seq, head) for each tensor; the head dim must be contiguous.
-// Returns the launch's cudaGetLastError().
+// Returns the first CUDA error: for bf16, cudaErrorMisalignedAddress when a
+// row is not 16-byte aligned, then the shared-memory attribute's; then the
+// launch's cudaGetLastError().
 cudaError_t flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* o, int dtype,
     int batch, int sq, int skv, int hq, int hkv, int d,
@@ -172,6 +245,6 @@ cudaError_t flash_attention_fwd_launch(
       q, k, v, o, sq, skv, hq, hkv, q_strides, k_strides, v_strides,
       o_strides, causal, window, scale);
   if (dtype == 0) return launch_typed<float>(p, batch, hq, d, stream);
-  if (dtype == 1) return launch_typed<__nv_bfloat16>(p, batch, hq, d, stream);
+  if (dtype == 1) { ATTN_DISPATCH_TC(attn::tc::flash_fwd_tc, d, p, batch, hq, stream) }
   return cudaErrorInvalidValue;
 }

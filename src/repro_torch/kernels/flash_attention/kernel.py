@@ -3,7 +3,9 @@
 ``flash_attention_tpu``.
 
 CPU tensors go to the plain version (``ref.attention_ref``); CUDA tensors
-launch the kernel or raise. ``launches`` counts the kernel's launches.
+launch the kernel or raise. The kernel runs bf16 on the tensor cores
+(``wgmma``) and fp32 on the CUDA cores, one entry point for both;
+``launches`` counts the kernel's launches.
 """
 from __future__ import annotations
 

@@ -8,7 +8,8 @@
 //           + e^{seg_i} C_i . S_prev
 //   S     = e^{seg_last} S_prev + sum_j e^{seg_last - seg_j} dt_j x_j (x) B_j
 // and returns y (B, L, H, P) in x's dtype and the final state (B, H, P, N)
-// in fp32.
+// in fp32. S_prev of the first chunk is a given initial state (B, H, P, N)
+// fp32, or 0, so a prefill can continue a scan (ssd_tpu starts at 0).
 //
 // Grid and carry: the TPU kernel walks the chunks as a sequential grid axis
 // with S in VMEM scratch; Hopper blocks run in no order, so one block per
@@ -64,6 +65,7 @@ struct Params {
   const void* cm;
   void* y;
   float* state;                      // (B, H, P, N) contiguous
+  const float* init;                 // (B, H, P, N) contiguous, or null: 0
   int64_t x_sb, x_sl, x_sh;          // element strides; last dim contiguous
   int64_t dt_sb, dt_sl, dt_sh;
   int64_t b_sb, b_sl;
@@ -121,7 +123,11 @@ __global__ void __launch_bounds__(NT) ssd_fwd(const Params p) {
   const T* cg = static_cast<const T*>(p.cm) + b * p.c_sb;
   T* yg = static_cast<T*>(p.y) + b * p.y_sb + h * p.y_sh;
 
-  for (int idx = tid; idx < N * P; idx += NT) S[idx] = 0.f;
+  const float* ig = p.init ? p.init + ((int64_t)b * p.H + h) * P * N : nullptr;
+  for (int idx = tid; idx < N * P; idx += NT) {
+    const int pp = idx / N;
+    S[(idx - pp * N) * P + pp] = ig ? ig[idx] : 0.f;
+  }
 
   for (int base = 0; base < L; base += Q) {
     const int qn = min(Q, L - base);  // valid rows of this chunk
@@ -315,22 +321,24 @@ cudaError_t launch_typed(const Params& p, int batch, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, B, C and y); dt and a are float32,
-// the state is written float32 (B, H, P, N) contiguous. Strides are in
+// the state is written float32 (B, H, P, N) contiguous, starting from
+// init_state (the same layout) or, where it is null, from 0. Strides are in
 // elements: x/y (batch, seq, head), dt (batch, seq, head), B/C (batch, seq);
 // the last dim of each is contiguous. Needs P % 4 == 0, P <= 64,
 // N % 4 == 0, N <= 128 (the wrapper checks). Returns the first CUDA error
 // of the attribute call or the launch.
 cudaError_t ssd_scan_fwd_launch(
     const void* x, const float* dt, const float* a, const void* bm,
-    const void* cm, void* y, float* state, int dtype, int batch, int L,
-    int H, int P, int N, int Q, const int64_t* x_strides,
-    const int64_t* dt_strides, const int64_t* b_strides,
-    const int64_t* c_strides, const int64_t* y_strides,
-    cudaStream_t stream) {
+    const void* cm, void* y, float* state, const float* init_state,
+    int dtype, int batch, int L, int H, int P, int N, int Q,
+    const int64_t* x_strides, const int64_t* dt_strides,
+    const int64_t* b_strides, const int64_t* c_strides,
+    const int64_t* y_strides, cudaStream_t stream) {
   if (P % 4 || P > MAX_P || N % 4 || N > MAX_N || Q < 1 || L < 1)
     return cudaErrorInvalidValue;
   Params p;
   p.x = x; p.dt = dt; p.a = a; p.bm = bm; p.cm = cm; p.y = y; p.state = state;
+  p.init = init_state;
   p.x_sb = x_strides[0]; p.x_sl = x_strides[1]; p.x_sh = x_strides[2];
   p.dt_sb = dt_strides[0]; p.dt_sl = dt_strides[1]; p.dt_sh = dt_strides[2];
   p.b_sb = b_strides[0]; p.b_sl = b_strides[1];

@@ -21,11 +21,14 @@ MAX_GRID_Y = 65535
 launches = 0
 
 
-def check_args(x, dt, a, bmat, cmat, chunk):
+def check_args(x, dt, a, bmat, cmat, chunk, init_state=None):
     """What the kernel takes, checked on any device. Raises
     ``ValueError``."""
-    if len({t.device for t in (x, dt, a, bmat, cmat)}) != 1:
-        raise ValueError("x, dt, a, B and C must lie on one device")
+    given = (x, dt, a, bmat, cmat) + (() if init_state is None
+                                      else (init_state,))
+    if len({t.device for t in given}) != 1:
+        raise ValueError("x, dt, a, B, C and the initial state must lie on "
+                         "one device")
     if x.dtype not in DTYPES or bmat.dtype != x.dtype \
             or cmat.dtype != x.dtype:
         raise ValueError(f"dtypes {x.dtype}, {bmat.dtype}, {cmat.dtype}: "
@@ -53,22 +56,34 @@ def check_args(x, dt, a, bmat, cmat, chunk):
     if any(t.stride(-1) != 1 for t in (x, dt, bmat, cmat)) \
             or a.stride(0) != 1:
         raise ValueError("the last dim of every input must be contiguous")
+    if init_state is not None and (
+            tuple(init_state.shape) != (b, h, p, n)
+            or init_state.dtype != torch.float32):
+        raise ValueError(f"initial state {tuple(init_state.shape)} "
+                         f"{init_state.dtype}: want ({b}, {h}, {p}, {n}) "
+                         "float32")
 
 
-def ssd_cuda(x, dt, a, bmat, cmat, *, chunk=128):
+def ssd_cuda(x, dt, a, bmat, cmat, *, chunk=128, init_state=None):
     """x (B, L, H, P); dt (B, L, H) fp32 [post-softplus]; a (H,) fp32
-    [negative]; bmat/cmat (B, L, N). Returns (y (B, L, H, P) in x's
+    [negative]; bmat/cmat (B, L, N); the scan continues from
+    ``init_state`` (B, H, P, N) fp32, or starts from 0 where it is None
+    (``ssd_tpu`` always starts from 0). Returns (y (B, L, H, P) in x's
     dtype, state (B, H, P, N) fp32), as ``ssd_tpu``."""
-    if all(t.device.type == "cpu" for t in (x, dt, a, bmat, cmat)):
-        return ssd_ref_sequential(x, dt, a, bmat, cmat)
-    build.check_cuda("ssd_cuda", x, dt, a, bmat, cmat)
-    check_args(x, dt, a, bmat, cmat, chunk)
+    inputs = (x, dt, a, bmat, cmat) + (() if init_state is None
+                                       else (init_state,))
+    if all(t.device.type == "cpu" for t in inputs):
+        return ssd_ref_sequential(x, dt, a, bmat, cmat, init_state)
+    build.check_cuda("ssd_cuda", *inputs)
+    check_args(x, dt, a, bmat, cmat, chunk, init_state)
     global launches
     b, l, h, p = x.shape
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
     state = torch.empty((b, h, p, bmat.shape[2]), dtype=torch.float32,
                         device=x.device)
-    build.extension().ssd_scan_fwd(x, dt, a, bmat, cmat, y, state,
+    init = (state.new_empty(0) if init_state is None
+            else init_state.contiguous())
+    build.extension().ssd_scan_fwd(x, dt, a, bmat, cmat, y, state, init,
                                    min(int(chunk), l))
     launches += 1
     return y, state

@@ -5,14 +5,16 @@ from __future__ import annotations
 import torch
 
 
-def ssd_ref_sequential(x, dt, a, bmat, cmat):
-    """x (B, L, H, P); dt (B, L, H); a (H,); bmat/cmat (B, L, N).
+def ssd_ref_sequential(x, dt, a, bmat, cmat, init_state=None):
+    """x (B, L, H, P); dt (B, L, H); a (H,); bmat/cmat (B, L, N); the scan
+    starts from ``init_state`` (B, H, P, N), or from 0 where it is None.
     Returns (y (B, L, H, P) in x's dtype, state (B, H, P, N) fp32)."""
     b, l, h, p = x.shape
     n = bmat.shape[-1]
     xf, dtf = x.float(), dt.float()
     bf, cf, af = bmat.float(), cmat.float(), a.float()
-    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
     ys = torch.empty((b, l, h, p), dtype=torch.float32, device=x.device)
     for t in range(l):
         dt_t = dtf[:, t]                                       # (B, H)

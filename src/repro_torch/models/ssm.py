@@ -7,11 +7,12 @@ group]; state (B, H, P, N).
 
 ``mamba_block(use_kernel=True)`` runs the scan in the hand-written CUDA
 kernel (``repro_torch.kernels.ssd_scan.kernel.ssd_cuda``, its plain
-version for CPU tensors); ``use_kernel=False`` runs ``ssd_ref``, the blocked plain-torch
-decomposition. One deliberate difference from the reference: the kernel
-starts from a zero state, and where the reference silently drops a given
-``ssd_state`` on that path (``repro/models/ssm.py:126-129``) the port
-raises.
+version for CPU tensors); ``use_kernel=False`` runs ``ssd_ref``, the
+blocked plain-torch decomposition. Both continue a given ``ssd_state``.
+One deliberate difference from the reference: its kernel path silently
+drops a given ``ssd_state`` for L > 1 (``repro/models/ssm.py:126-129``),
+while the port's kernel continues the scan from it, as the reference's
+plain path does.
 """
 from __future__ import annotations
 
@@ -107,11 +108,6 @@ def mamba_block(params, x, cfg: SSMConfig, *, conv_cache=None,
     di = cfg.d_inner(d)
     n = cfg.d_state
     h = cfg.n_heads(d)
-    if use_kernel and l > 1 and ssd_state is not None:
-        raise ValueError(
-            "mamba_block(use_kernel=True) starts the scan from a zero state "
-            "and cannot continue one (ssd_state given with L > 1); use "
-            "use_kernel=False")
     proj = x @ params["in_proj"]                  # (B, L, 2*di + 2n + h)
     z, xbc, dt = torch.split(proj, [di, di + 2 * n, h], dim=-1)
     xbc, new_conv = causal_conv(xbc, params["conv_w"], conv_cache)
@@ -127,7 +123,8 @@ def mamba_block(params, x, cfg: SSMConfig, *, conv_cache=None,
                                        Bv[:, 0], Cv[:, 0])
         y = y[:, None]
     elif use_kernel:
-        y, new_state = ssd_cuda(xh, dt, A, Bv, Cv, chunk=chunk or cfg.chunk)
+        y, new_state = ssd_cuda(xh, dt, A, Bv, Cv, chunk=chunk or cfg.chunk,
+                                init_state=ssd_state)
     else:
         y, new_state = ssd_ref(xh, dt, A, Bv, Cv, chunk=chunk or cfg.chunk,
                                init_state=ssd_state)

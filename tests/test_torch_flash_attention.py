@@ -1,7 +1,11 @@
 """The port's attention paths (plain versions of the CUDA kernel, the
 chunked plain-torch flash attention, decode attention) against the JAX
-reference on the CPU. Inputs are made with numpy from a seed and fed to
-both. The kernel itself runs only on a GPU (``chip_smoke.py``)."""
+reference on the CPU, and a plain-torch emulation of the bf16
+tensor-core bodies' arithmetic against the reference's. Inputs are made
+with numpy from a seed and fed to both. The kernel itself runs only on a
+GPU (``chip_smoke.py``)."""
+import math
+
 import numpy as np
 import pytest
 
@@ -11,6 +15,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels.flash_attention.chunked import chunked_attention_tpu  # noqa: E402
 from repro.kernels.flash_attention.kernel import flash_attention_tpu  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
@@ -157,3 +162,97 @@ def test_decode_attention_matches_jax(per_lane):
                                      jnp.asarray(vc), pos=jnp.asarray(pos),
                                      window=window)
         assert od.shape == (b, hq, d) and _err(od, jod) < 2e-5
+
+
+# the bf16 bodies' tiling (attention_common.cuh, namespace attn::tc): blocks
+# of BQ query rows as warpgroups of WG rows, kv tiles of BK rows
+TC_BQ, TC_WG, TC_BK = 128, 64, 64
+# a zamba2-like head dim beside the reference grid; its q rows end inside
+# the second block's first warpgroup
+D112_CASE = (1, 4, 2, 160, 160, 112, True, 0, 32, 32)
+
+
+def _tc_emulation(q, k, v, *, causal, window, two_pass):
+    """What the bf16 tensor-core bodies compute, rounding where they round:
+    bf16 q/k/v, fp32 scores; per warpgroup the kernel's kv tiles between
+    its block's loop bounds, skipping tiles none of its rows sees; scores
+    in the log2 domain, masked to -inf; the online max with the
+    exp(m_prev - m_new) rescale (flash) or a first pass for the max (two
+    passes); P rounded to bf16 before P.v and summed as rounded into l;
+    fp32 o; o / max(l, 1e-30) rounded to bf16. q (B, Hq, Sq, D), k/v
+    (B, Hkv, Skv, D) bf16."""
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    group = hq // k.shape[1]
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, 1)
+    vf = v.float().repeat_interleave(group, 1)
+    scale_log2 = math.log2(math.e) / math.sqrt(d)
+    out = torch.zeros(b, hq, sq, d)
+
+    def reach(q0, rows):
+        hi = min(skv, q0 + rows) if causal else skv
+        return (max(0, q0 - window + 1) if window > 0 else 0), hi
+
+    for q0 in range(0, sq, TC_BQ):
+        lo, hi = reach(q0, TC_BQ)
+        tiles = range(lo // TC_BK * TC_BK, hi, TC_BK)
+        for r0 in range(q0, min(q0 + TC_BQ, sq), TC_WG):
+            wlo, whi = reach(r0, TC_WG)
+            seen = [k0 for k0 in tiles if k0 < whi and k0 + TC_BK > wlo]
+            rows = torch.arange(r0, min(r0 + TC_WG, sq))
+
+            def scores(k0):
+                cols = torch.arange(k0, min(k0 + TC_BK, skv))
+                s = torch.einsum("bhqd,bhkd->bhqk", qf[:, :, rows],
+                                 kf[:, :, cols]) * scale_log2
+                ok = torch.ones(len(rows), len(cols), dtype=torch.bool)
+                if causal:
+                    ok &= cols[None] <= rows[:, None]
+                if window > 0:
+                    ok &= cols[None] > rows[:, None] - window
+                return s.masked_fill(~ok, -math.inf), cols
+
+            m = torch.full((b, hq, len(rows), 1), -math.inf)
+            l = torch.zeros(b, hq, len(rows), 1)
+            o = torch.zeros(b, hq, len(rows), d)
+            if two_pass:
+                for k0 in seen:
+                    m = torch.maximum(m, scores(k0)[0].amax(-1, True))
+            for k0 in seen:
+                s, cols = scores(k0)
+                if not two_pass:
+                    m_new = torch.maximum(m, s.amax(-1, True))
+                    base = torch.where(m_new == -math.inf, 0.0, m_new)
+                    corr = torch.exp2(m - base)
+                    m, l, o = m_new, l * corr, o * corr
+                base = torch.where(m == -math.inf, 0.0, m)
+                p = torch.exp2(s - base).bfloat16().float()
+                l = l + p.sum(-1, keepdim=True)
+                o = o + p @ vf[:, :, cols]
+            out[:, :, rows] = o / l.clamp_min(1e-30)
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("two_pass", [False, True], ids=["flash", "two_pass"])
+@pytest.mark.parametrize("case", FLASH_CASES + [D112_CASE])
+def test_tc_emulation_matches_jax_bf16(case, two_pass):
+    """The emulated bf16 kernel (flash and two-pass variants) against the
+    reference's XLA flash attention and its Pallas kernel of the same
+    variant in interpret mode, on the reference grid and a D=112 case, at
+    the bf16 tolerance: the margin the bf16 rounding of P leaves before
+    the card's gates."""
+    b, hq, hkv, sq, skv, d, causal, window, bq, bk = case
+    arrs = _qkv(9, b, hq, hkv, sq, skv, d)
+    (q, k, v), (jq, jk, jv) = _both(arrs, torch.bfloat16, jnp.bfloat16)
+    out = _tc_emulation(q, k, v, causal=causal, window=window,
+                        two_pass=two_pass)
+    pallas = chunked_attention_tpu if two_pass else flash_attention_tpu
+    ref = pallas(jq, jk, jv, causal=causal, window=window, bq=bq, bk=bk,
+                 interpret=True)
+    xla = jattn.flash_attention_xla(*(x.transpose(0, 2, 1, 3)
+                                      for x in (jq, jk, jv)),
+                                    causal=causal, window=window)
+    assert out.shape == (b, hq, sq, d)
+    assert _err(out, ref) < 2e-2
+    assert _err(out, np.asarray(xla, np.float32).transpose(0, 2, 1, 3)) < 2e-2

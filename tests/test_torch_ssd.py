@@ -1,8 +1,9 @@
 """The port's SSD functions and the SSD kernel's wrapper against the JAX
 reference on the CPU: the sequential recurrence, the blocked scan (with and
-without an initial state), the decode step, the causal conv, the Mamba2
-block (plain scan and the kernel's wrapper, whose CPU path is its plain
-version) and the kernel registry. Inputs are made with numpy from a seed
+without an initial state), the kernel's wrapper continuing an initial
+state, the decode step, the causal conv, the Mamba2 block (plain scan and
+the kernel's wrapper, whose CPU path is its plain version, from zero and
+from a given state) and the kernel registry. Inputs are made with numpy from a seed
 and fed to both. The CUDA kernel itself runs only on a GPU
 (``chip_smoke.py``)."""
 import numpy as np
@@ -209,19 +210,43 @@ def test_mamba_block_decode_continues_prefill(block):
 
 
 def test_mamba_block_kernel_with_state_raises(block):
-    """The kernel path starts from a zero state: given one with L > 1 it
-    raises (the reference drops it silently); the plain path continues
-    from it."""
-    cfg, _, params, x = block
+    """The kernel path continues a given state with L > 1 (it raised
+    before the kernel took an initial state): the port's block with the
+    kernel's wrapper (on CPU tensors its plain version) equals the
+    reference's plain block from the same N(0, 1) state, output and
+    carried state, and differs from a zero start."""
+    cfg, jcfg, params, x = block
     tp = {k: torch.from_numpy(v) for k, v in params.items()}
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
     h = cfg.n_heads(x.shape[-1])
-    st = torch.ones(x.shape[0], h, cfg.head_dim, cfg.d_state)
-    with pytest.raises(ValueError, match="use_kernel"):
-        ssm.mamba_block(tp, torch.from_numpy(x), cfg, ssd_state=st,
-                        use_kernel=True)
-    out, _ = ssm.mamba_block(tp, torch.from_numpy(x), cfg, ssd_state=st)
-    zero, _ = ssm.mamba_block(tp, torch.from_numpy(x), cfg)
+    st = np.random.default_rng(7).normal(
+        size=(x.shape[0], h, cfg.head_dim, cfg.d_state)).astype(np.float32)
+    out, (_, new_st) = ssm.mamba_block(tp, torch.from_numpy(x), cfg,
+                                       ssd_state=torch.from_numpy(st),
+                                       use_kernel=True)
+    ref, (_, jst) = jssm.mamba_block(jp, jnp.asarray(x), jcfg,
+                                     ssd_state=jnp.asarray(st),
+                                     use_kernel=False)
+    assert _err(out, ref) < 1e-5 and _err(new_st, jst) < 1e-5
+    zero, _ = ssm.mamba_block(tp, torch.from_numpy(x), cfg, use_kernel=True)
     assert float((out - zero).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_kernel_wrapper_with_state_matches_jax(case):
+    """The kernel's wrapper (on CPU tensors the sequential recurrence)
+    continuing an N(0, 1) initial state computes what the reference's
+    blocked scan computes from it; it launches nothing."""
+    b, l, h, p, n, chunk = case
+    t, j = _both(_inputs(8, b, l, h, p, n), torch.float32, jnp.float32)
+    s0 = np.random.default_rng(9).normal(size=(b, h, p, n)).astype(
+        np.float32)
+    before = sk.launches
+    y, s = sk.ssd_cuda(*t, chunk=chunk, init_state=torch.from_numpy(s0))
+    yr, sr = jssm.ssd_ref(*j, chunk=chunk, init_state=jnp.asarray(s0))
+    assert sk.launches == before
+    assert y.shape == (b, l, h, p) and s.shape == (b, h, p, n)
+    assert _err(y, yr) < 1e-4 and _err(s, sr) < 1e-4
 
 
 def test_kernel_registry_catalog():
@@ -273,4 +298,12 @@ def test_kernel_check_args():
         sk.check_args(x, dt.bfloat16(), a, bm, cm, 16)
     with pytest.raises(ValueError, match="chunk"):
         sk.check_args(x, dt, a, bm, cm, 0)
+    sk.check_args(x, dt, a, bm, cm, 16,
+                  torch.empty(b, h, p, n, device="meta"))
+    with pytest.raises(ValueError, match="initial state"):
+        sk.check_args(x, dt, a, bm, cm, 16,
+                      torch.empty(b, h, n, p, device="meta"))
+    with pytest.raises(ValueError, match="initial state"):
+        sk.check_args(x, dt, a, bm, cm, 16,
+                      torch.empty(b, h, p, n, device="meta").bfloat16())
 
