@@ -25,6 +25,7 @@ cudaError_t chunked_attention_fwd_launch(
 cudaError_t ssd_scan_fwd_launch(
     const void* x, const float* dt, const float* a, const void* bm,
     const void* cm, void* y, float* state, const float* init_state,
+    float* keys, float* cstate, void* prev,
     int dtype, int batch, int L, int H, int P, int N, int Q,
     const int64_t* x_strides, const int64_t* dt_strides,
     const int64_t* b_strides, const int64_t* c_strides,
@@ -72,13 +73,22 @@ void chunked_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
                 o, causal, window, scale);
 }
 
+// Data pointer of a float32 tensor, or null where it is empty.
+float* f32_or_null(const torch::Tensor& t) {
+  return t.numel() ? t.data_ptr<float>() : nullptr;
+}
+
 // x/y (B, L, H, P), dt (B, L, H), a (H,), B/C (B, L, N), state and
 // init_state (B, H, P, N) contiguous, init_state empty for a zero start;
-// last dims contiguous. The Python wrapper has checked them.
+// last dims contiguous. keys (3, B, H, L) fp32, cstate (B, nc, H, P, N)
+// fp32 and prev (2, B, nc, H, P, N) bf16 are the bf16 body's scratch,
+// contiguous, empty for fp32. The Python wrapper has checked them.
 void ssd_scan_fwd(const torch::Tensor& x, const torch::Tensor& dt,
                   const torch::Tensor& a, const torch::Tensor& bm,
                   const torch::Tensor& cm, const torch::Tensor& y,
                   const torch::Tensor& state, const torch::Tensor& init_state,
+                  const torch::Tensor& keys, const torch::Tensor& cstate,
+                  const torch::Tensor& prev,
                   int64_t chunk) {
   const c10::cuda::CUDAGuard guard(x.device());
   const std::array<int64_t, 3> xs{x.stride(0), x.stride(1), x.stride(2)},
@@ -90,7 +100,8 @@ void ssd_scan_fwd(const torch::Tensor& x, const torch::Tensor& dt,
   const cudaError_t err = ssd_scan_fwd_launch(
       x.data_ptr(), dt.data_ptr<float>(), a.data_ptr<float>(), bm.data_ptr(),
       cm.data_ptr(), y.data_ptr(), state.data_ptr<float>(),
-      init_state.numel() ? init_state.data_ptr<float>() : nullptr, dtype,
+      f32_or_null(init_state), f32_or_null(keys), f32_or_null(cstate),
+      prev.numel() ? prev.data_ptr() : nullptr, dtype,
       x.size(0), x.size(1), x.size(2), x.size(3), bm.size(2), chunk,
       xs.data(), dts.data(), bs.data(), cs.data(), ys.data(),
       c10::cuda::getCurrentCUDAStream().stream());

@@ -4,10 +4,10 @@
 two-pass softmax (K read twice, no accumulator rescale), a separate
 implementation point on the scheduler's variant axis.
 
-CPU tensors go to the plain version (``ref.attention_ref``); CUDA tensors
-launch the kernel or raise. Like the flash kernel it runs bf16 on the
-tensor cores and fp32 on the CUDA cores; ``launches`` counts the kernel's
-launches.
+CPU tensors go to the plain version (``ref.attention_kernel_ref``); CUDA
+tensors launch the kernel or raise. Like the flash kernel it runs bf16 on
+the tensor cores and fp32 on the CUDA cores; ``launches`` counts the
+kernel's launches.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.kernel import check_args
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import attention_kernel_ref
 
 launches = 0
 
@@ -27,7 +27,7 @@ def chunked_attention_cuda(q, k, v, *, causal=True, window=0):
     flash wrapper's contract: any strides with the head dim contiguous; on
     CUDA the output is a (B, Sq, Hq, D) tensor's transposed view."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
-        return attention_ref(q, k, v, causal=causal, window=window)
+        return attention_kernel_ref(q, k, v, causal=causal, window=window)
     build.check_cuda("chunked_attention_cuda", q, k, v)
     check_args(q, k, v, window)
     global launches

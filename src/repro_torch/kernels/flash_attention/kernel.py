@@ -2,10 +2,11 @@
 (``csrc/flash_attention.cu``), the port's counterpart of
 ``flash_attention_tpu``.
 
-CPU tensors go to the plain version (``ref.attention_ref``); CUDA tensors
-launch the kernel or raise. The kernel runs bf16 on the tensor cores
-(``wgmma``) and fp32 on the CUDA cores, one entry point for both;
-``launches`` counts the kernel's launches.
+CPU tensors go to the plain version (``ref.attention_kernel_ref``: a row
+that sees no key gives 0, as in the kernel); CUDA tensors launch the
+kernel or raise. The kernel runs bf16 on the tensor cores (``wgmma``) and
+fp32 on the CUDA cores, one entry point for both; ``launches`` counts the
+kernel's launches.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import attention_kernel_ref
 
 HEAD_DIMS = (32, 64, 112, 128)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -61,7 +62,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0):
     allocated as (B, Sq, Hq, D) and returned as its transposed view, so
     ``.transpose(1, 2)`` gives the model's layout with no copy."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
-        return attention_ref(q, k, v, causal=causal, window=window)
+        return attention_kernel_ref(q, k, v, causal=causal, window=window)
     build.check_cuda("flash_attention_cuda", q, k, v)
     check_args(q, k, v, window)
     global launches

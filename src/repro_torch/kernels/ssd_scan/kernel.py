@@ -2,10 +2,14 @@
 the port's counterpart of ``ssd_tpu``.
 
 CPU tensors go to the plain version (``ref.ssd_ref_sequential``); CUDA
-tensors launch the kernel or raise. ``launches`` counts the kernel's
-launches. Unlike ``ssd_tpu`` the wrapper neither pads L nor transposes:
-the kernel masks the ragged last chunk and reads every input through its
-strides (only the last dim of each must be contiguous).
+tensors launch the kernel or raise. bf16 runs four chunk-parallel CUDA
+kernels on the tensor cores (chunk cumsums, chunk states, the scan over
+chunks, outputs), for which the wrapper allocates the scratch; fp32 runs
+one kernel on the CUDA cores. ``launches`` counts calls that launched,
+one per call however many CUDA kernels it runs. Unlike ``ssd_tpu`` the
+wrapper neither pads L nor transposes: the kernels mask the ragged last
+chunk and read every input through its strides (only the last dim of
+each must be contiguous).
 """
 from __future__ import annotations
 
@@ -78,12 +82,26 @@ def ssd_cuda(x, dt, a, bmat, cmat, *, chunk=128, init_state=None):
     check_args(x, dt, a, bmat, cmat, chunk, init_state)
     global launches
     b, l, h, p = x.shape
+    n = bmat.shape[2]
+    q = min(int(chunk), l)
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
-    state = torch.empty((b, h, p, bmat.shape[2]), dtype=torch.float32,
-                        device=x.device)
-    init = (state.new_empty(0) if init_state is None
-            else init_state.contiguous())
+    state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    none = state.new_empty(0)
+    init = none if init_state is None else init_state.contiguous()
+    if x.dtype == torch.bfloat16:
+        # per position seg, dt and the tile-relative decay (head-major),
+        # each chunk's own state, and the state before each chunk as two
+        # bf16 parts (hi, lo)
+        nc = -(-l // q)
+        keys = torch.empty((3, b, h, l), dtype=torch.float32,
+                           device=x.device)
+        cstate = torch.empty((b, nc, h, p, n), dtype=torch.float32,
+                             device=x.device)
+        prev = torch.empty((2, b, nc, h, p, n), dtype=torch.bfloat16,
+                           device=x.device)
+    else:
+        keys = cstate = prev = none
     build.extension().ssd_scan_fwd(x, dt, a, bmat, cmat, y, state, init,
-                                   min(int(chunk), l))
+                                   keys, cstate, prev, q)
     launches += 1
     return y, state

@@ -1,7 +1,8 @@
 """The port's attention paths (plain versions of the CUDA kernel, the
 chunked plain-torch flash attention, decode attention) against the JAX
-reference on the CPU, and a plain-torch emulation of the bf16
-tensor-core bodies' arithmetic against the reference's. Inputs are made
+reference on the CPU, the kernel wrappers' CPU paths on rows that see no
+key, and a plain-torch emulation of the bf16 tensor-core bodies'
+arithmetic against the reference's. Inputs are made
 with numpy from a seed and fed to both. The kernel itself runs only on a
 GPU (``chip_smoke.py``)."""
 import math
@@ -19,6 +20,7 @@ from repro.kernels.flash_attention.chunked import chunked_attention_tpu  # noqa:
 from repro.kernels.flash_attention.kernel import flash_attention_tpu  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
+from repro_torch.kernels.flash_attention import chunked  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
@@ -116,6 +118,38 @@ def test_kernel_wrapper_on_cpu_matches_pallas_interpret(case):
                               bq=bq, bk=bk, interpret=True)
     assert fa.launches == before
     assert _err(out, ref) < 2e-5
+
+
+# non-causal with a window of 8 over 16 keys: query rows 23 to 63 see no
+# key (b, hq, hkv, sq, skv, d, causal, window)
+NO_KEY_CASE = (1, 2, 1, 64, 16, 32, False, 8)
+NO_KEY_ROWS = slice(23, None)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("two_pass", [False, True], ids=["flash", "two_pass"])
+def test_kernel_wrapper_rows_without_keys_are_zero(two_pass, dtype):
+    """On rows that see no key the wrappers' CPU paths give 0, as the
+    Pallas kernels (interpret mode) and the CUDA bodies do, and agree with
+    the Pallas kernel of their variant everywhere else; ``attention_ref``
+    keeps the reference's mean of V there."""
+    b, hq, hkv, sq, skv, d, causal, window = NO_KEY_CASE
+    tdt, jdt, _ = DTYPES[dtype]
+    (q, k, v), (jq, jk, jv) = _both(_qkv(10, b, hq, hkv, sq, skv, d), tdt,
+                                    jdt)
+    wrapper = (chunked.chunked_attention_cuda if two_pass
+               else fa.flash_attention_cuda)
+    pallas = chunked_attention_tpu if two_pass else flash_attention_tpu
+    out = wrapper(q, k, v, causal=causal, window=window)
+    ref = pallas(jq, jk, jv, causal=causal, window=window, interpret=True)
+    assert out.shape == (b, hq, sq, d) and out.dtype == tdt
+    assert _err(out, ref) < (2e-5 if dtype == "float32" else 2e-2)
+    assert bool((out[:, :, NO_KEY_ROWS] == 0).all())
+    assert float(out[:, :, :NO_KEY_ROWS.start].abs().max()) > 0.1
+    mean_v = attention_ref(q, k, v, causal=causal, window=window)
+    assert _err(mean_v, jax_ref(jq, jk, jv, causal=causal,
+                                window=window)) < DTYPES[dtype][2]
+    assert float(mean_v[:, :, NO_KEY_ROWS].float().abs().max()) > 0.1
 
 
 def test_ops_layout_and_attn_impl_dispatch():

@@ -3,8 +3,9 @@ reference on the CPU: the sequential recurrence, the blocked scan (with and
 without an initial state), the kernel's wrapper continuing an initial
 state, the decode step, the causal conv, the Mamba2 block (plain scan and
 the kernel's wrapper, whose CPU path is its plain version, from zero and
-from a given state) and the kernel registry. Inputs are made with numpy from a seed
-and fed to both. The CUDA kernel itself runs only on a GPU
+from a given state), the kernel registry, and a plain-torch emulation of
+the bf16 tensor-core body's arithmetic. Inputs are made with numpy from a
+seed and fed to both. The CUDA kernel itself runs only on a GPU
 (``chip_smoke.py``)."""
 import numpy as np
 import pytest
@@ -39,6 +40,10 @@ SSD_CASES = [
 ]
 DTYPES = {"float32": (torch.float32, jnp.float32, 1e-4),
           "bfloat16": (torch.bfloat16, jnp.bfloat16, 5e-2)}
+# a mid width, zamba2's head and state dims and chunk, held against the
+# full-width limits of chip_smoke.py (relative max-norm: y, state)
+MID_CASE = (1, 512, 8, 64, 64, 256)
+MID_Y_REL, MID_STATE_REL = 1e-2, 1e-3
 
 
 def _inputs(seed, b, l, h, p, n):
@@ -307,3 +312,98 @@ def test_kernel_check_args():
         sk.check_args(x, dt, a, bm, cm, 16,
                       torch.empty(b, h, p, n, device="meta").bfloat16())
 
+
+
+def _split(v, parts=2):
+    """v as the tensor cores see it in the bf16 body: the sum of its
+    ``parts`` bf16 parts, hi = bf16(v), lo = bf16(v - hi), ...; the kernel
+    takes two."""
+    out = torch.zeros_like(v)
+    for _ in range(parts):
+        out = out + (v - out).bfloat16().float()
+    return out
+
+
+def _tc_emulation(x, dt, a, bm, cm, chunk, init_state=None, parts=2):
+    """What the bf16 tensor-core body (``ssd_scan.cu``, namespace tc)
+    computes, rounding where it rounds, chunk by chunk: seg = cumsum(dt a)
+    in fp32; every fp32 operand of a product taken as its two-part bf16
+    split hi + lo (``_split``): w * B with w = e^{seg_last - seg} dt in the
+    chunk's own state x^T (w * B); the state before the chunk (the scan
+    over chunks runs in fp32) and M = (C B^T) e^{seg_i - seg_j} dt_j (j <= i,
+    else 0) in y = M x + e^{seg} (C . S_prev^T); fp32 accumulate; y rounded
+    to x's dtype, the final state fp32. x, B, C bf16 (B, L, H, P) /
+    (B, L, N). ``parts=1`` rounds each operand to bf16 once instead."""
+    b, l, h, p = x.shape
+    xf, bf, cf = x.float(), bm.float(), cm.float()
+    y = torch.empty(b, l, h, p)
+    state = (torch.zeros(b, h, p, bm.shape[-1]) if init_state is None
+             else init_state.float().clone())
+    for c0 in range(0, l, chunk):
+        rows = slice(c0, min(c0 + chunk, l))
+        xc, bc, cc, dtc = xf[:, rows], bf[:, rows], cf[:, rows], dt[:, rows]
+        seg = torch.cumsum(dtc * a, dim=1)                    # (b, q, h)
+        w = torch.exp(seg[:, -1:] - seg) * dtc
+        own = torch.einsum("bqhp,bqhn->bhpn", xc,
+                           _split(w[..., None] * bc[:, :, None, :], parts))
+        q = seg.shape[1]
+        causal = torch.ones(q, q, dtype=torch.bool).tril()[None, :, :, None]
+        diff = seg[:, :, None, :] - seg[:, None, :, :]        # (b, i, j, h)
+        g = torch.einsum("bin,bjn->bij", cc, bc)[..., None]
+        m = torch.where(causal, g * torch.exp(torch.where(causal, diff, 0.0))
+                        * dtc[:, None], 0.0)
+        y[:, rows] = torch.einsum("bijh,bjhp->bihp", _split(m, parts), xc) \
+            + torch.einsum("bin,bhpn->bihp", cc, _split(state, parts)) \
+            * torch.exp(seg)[..., None]
+        state = state * torch.exp(seg[:, -1])[..., None, None] + own
+    return y.to(x.dtype), state
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_tc_emulation_matches_jax_bf16(case, with_state):
+    """The emulated bf16 body on the reference's four cases at the bf16
+    tolerance: from zero against the Pallas kernel (interpret mode) and
+    the sequential recurrence; from an N(0, 1) initial state, which
+    neither takes, against the reference's blocked scan continuing it,
+    its y rounded to x's dtype as the Pallas kernel returns it."""
+    b, l, h, p, n, chunk = case
+    t, j = _both(_inputs(11, b, l, h, p, n), torch.bfloat16, jnp.bfloat16)
+    s0 = np.random.default_rng(12).normal(size=(b, h, p, n)).astype(
+        np.float32) if with_state else None
+    y, s = _tc_emulation(*t, chunk, None if s0 is None
+                         else torch.from_numpy(s0))
+    assert y.shape == (b, l, h, p) and y.dtype == torch.bfloat16
+    refs = ([ssd_tpu(*j, chunk=chunk, interpret=True), jseq(*j)]
+            if s0 is None else
+            [jssm.ssd_ref(*j, chunk=chunk, init_state=jnp.asarray(s0))])
+    if s0 is not None:
+        refs = [(refs[0][0].astype(jnp.bfloat16), refs[0][1])]
+    for yr, sr in refs:
+        assert _err(y, yr) < 5e-2 and _err(s, sr) < 5e-2
+
+
+def test_tc_emulation_mid_width_relative():
+    """The emulated bf16 body at a mid width with zamba2's P, N and chunk,
+    against the sequential recurrence on the same bf16 inputs, within the
+    full-width limits the card's gate holds the kernel to (relative
+    max-norm: y 1e-2, the state 1e-3)."""
+    b, l, h, p, n, chunk = MID_CASE
+    t, j = _both(_inputs(13, b, l, h, p, n), torch.bfloat16, jnp.bfloat16)
+    y, s = _tc_emulation(*t, chunk)
+    yr, sr = (np.asarray(r, np.float32) for r in jseq(*j))
+    assert _err(y, yr) / np.abs(yr).max() < MID_Y_REL
+    assert _err(s, sr) / np.abs(sr).max() < MID_STATE_REL
+
+
+def test_tc_emulation_one_bf16_part_misses_state_limit():
+    """Why the bf16 body splits each fp32 operand of its products into two
+    bf16 parts: rounded to bf16 once, the emulated state at the mid width
+    is further from the sequential recurrence than the full-width limit
+    (1e-3 relative) that two parts meet with room to spare."""
+    b, l, h, p, n, chunk = MID_CASE
+    t, j = _both(_inputs(13, b, l, h, p, n), torch.bfloat16, jnp.bfloat16)
+    sr = np.asarray(jseq(*j)[1], np.float32)
+    one = _err(_tc_emulation(*t, chunk, parts=1)[1], sr) / np.abs(sr).max()
+    two = _err(_tc_emulation(*t, chunk)[1], sr) / np.abs(sr).max()
+    assert one > MID_STATE_REL > 100 * two
