@@ -7,10 +7,13 @@ machine with a CUDA GPU (Hopper, ``sm_90a``).
 Phases, each printing one JSON line:
   build   : compile the CUDA kernels (flash attention, chunked two-pass
             attention, SSD scan) from the checkout's sources, timed, with
-            the compiler's output (ptxas registers and spills), and count
-            the tensor-core instructions (HGMMA, HMMA) in each kernel's
-            SASS: every bf16 attention body and every bf16 SSD kernel that
-            multiplies must hold some, the fp32 SSD body none.
+            the compiler's output (ptxas registers and spills), each
+            kernel's registers, stack and local (spill) bytes
+            (``cuobjdump -res-usage``), and count the tensor-core
+            instructions (HGMMA, HMMA) in each kernel's SASS: every bf16
+            attention body (head dims 32, 64, 112, 128, 256) and every
+            bf16 SSD kernel that multiplies must hold some, the fp32 SSD
+            body none.
   kernel  : the flash-attention kernel against its plain version
             (``attention_kernel_ref``) on the six reference cases and a
             case whose late rows see no key (those must be exactly 0) in
@@ -29,7 +32,10 @@ Phases, each printing one JSON line:
   decode  : 16 greedy ``decode_step``s from the prefilled cache.
   serve   : ``ServeEngine`` with 4 slots answers 6 requests, admitting the
             last two mid-run into freed slots; the first request's tokens
-            must equal its solo run.
+            must equal its bf16 solo run in an engine of the same 4 slots,
+            and an fp32 witness of phi3's first 4 layers (full width; the
+            one cut of the phase) must give equal tokens served alone by
+            1 and by 4 slots (see ``phase_serve``).
   profile : a torch.profiler trace of one prefill and four decode steps:
             device busy time, idle share, top kernels.
 Then phi3's 28 GB are freed and zamba2-7b (Mamba2 + shared attention) runs:
@@ -60,9 +66,28 @@ Then phi3's 28 GB are freed and zamba2-7b (Mamba2 + shared attention) runs:
             chunks must fail both gates. Two more plain bf16 paths
             (naive attention; the scan's output rounded to bf16) are
             logged beside them, the size of bf16's own noise.
-  decode, serve, profile : as for phi3; request 0's solo run has the
-            same four slots, and in fp32 its solo runs with one and with
-            four slots must agree (see ``phase_serve``).
+  decode, serve, profile : as for phi3; the fp32 witness has every
+            layer.
+Then zamba2's 13 GB are freed and gemma3-12b (40 sliding-window layers of
+window 1024 and 8 global layers, head dim 256) runs:
+  gemma3_kernels : both attention kernels at head dim 256 against
+            ``attention_kernel_ref`` on a causal and a sliding-window case,
+            fp32 (2e-5) and bf16 (2e-2), and at gemma3-12b's two prefill
+            shapes (4, 16, 8, 2048, 256), global causal and window 1024,
+            in bf16: kernel, plain and library times, the bound of the
+            pairs the mask shows; the D=256 bodies' registers and spills.
+  prefill : gemma3-12b at full width and depth, bf16, seeded random
+            weights: 4 x 2048 tokens (the windowed layers' caches roll),
+            exactly 48 flash launches, or 48 chunked ones on the chunked
+            path; both paths' last hidden state and every cached K/V row
+            (rolled order included) against the plain prefill, as phi3's;
+            the mask-one-ahead control and a control whose windowed
+            layers ignore the window must fail the gate.
+  decode  : 16 steps from position 2048 through rolling slots 0-15; then
+            layer 0's rolling K/V must equal a fresh prefill's of the same
+            2064 tokens, and a wrong-slot control must fail.
+  serve, profile : as for phi3; the fp32 witness is the first superblock
+            (6 of 48 layers).
 Then the card's name and power limit, one JSON line of kernel records
 (each with its body per dtype, ``design``, its TFLOP/s and its share of
 the bound), and the result line. Any failure raises and exits non-zero; without a
@@ -129,6 +154,22 @@ PREFILL_REL_TOL = 5e-2
 # an H100 the sound kernel reads 2.2e-2 and the control (causal mask one
 # key ahead) 1.23, 0.44 over the late half of the positions
 KV_REL_TOL = 5e-2
+# gemma3-12b's prefill: batch, q heads, kv heads, prompt, head dim; its
+# windowed layers' window. 4 x 2048 tokens, so that the rolling caches of
+# the windowed layers really roll
+GEMMA_ATTN = (4, 16, 8, 2048, 256)
+GEMMA_WINDOW = 1024
+# both kernels at head dim 256 beside the reference grid: a causal case
+# whose q rows end inside the second block's first warpgroup, and the grid's
+# sliding-window case widened (b, hq, hkv, sq, skv, d, causal, window)
+D256_CASES = [(1, 4, 2, 160, 160, 256, True, 0),
+              (1, 4, 1, 256, 256, 256, True, 48)]
+# the fp32 serve witnesses' depth where fp32 weights of every layer do not
+# fit beside the bf16 ones (phase_serve): phi3's first 4 of 40 layers
+# (5.4 GB + a 2.1 GB table beside 28 GB); gemma3's first superblock, 6 of
+# 48 (5.4 GB + a 4.0 GB table beside 23.5 GB)
+PHI3_WITNESS_LAYERS = 4
+GEMMA_WITNESS_LAYERS = 6
 # zamba2-7b's shared-attention prefill: batch, q heads, kv heads, prompt,
 # head dim (3584 / 32 = 112)
 ZAMBA_ATTN = (4, 32, 32, 2048, 112)
@@ -246,11 +287,18 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def library_ms(q, k, v) -> float:
-    """One PyTorch call computing the same function, timed as a yardstick;
+def library_ms(q, k, v, window: int = 0) -> float:
+    """One PyTorch call computing the same function (causal, and with a
+    ``window`` its mask as a boolean ``attn_mask``), timed as a yardstick;
     the port never calls it."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    if not window:
+        return time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                    enable_gqa=True))
+    pos = torch.arange(q.shape[2], device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    return time_ms(lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True))
 
 
 def smi_name_power() -> str:
@@ -260,23 +308,48 @@ def smi_name_power() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def sass_mma_counts() -> dict[str, dict[str, int]]:
-    """Tensor-core instructions (HGMMA: warpgroup MMA; HMMA: warp MMA) in
-    the SASS of every kernel of the built extension, by readable name."""
+def cuobjdump(flag: str) -> str:
+    """``cuobjdump <flag>`` of the built extension."""
     lib = build.BUILD_DIR / "repro_torch_kernels.so"
     tool = Path(cpp_extension.CUDA_HOME or "/usr/local/cuda") / "bin" / \
         "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+    return subprocess.run([str(tool), flag, str(lib)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
+
+
+def kernel_name(line: str) -> str:
+    """The readable name (``name<dtype[, dim]>``) of the kernel whose
+    mangled name a cuobjdump ``Function`` line holds."""
+    fn = SASS_FN.search(line)
+    args = (fn.group(2) if fn else "") or ""
+    dtype = "float32" if args.startswith("f") else "bfloat16"
+    dim = re.search(r"Li(\d+)E", args + "E")
+    return f"{fn.group(1) if fn else line.split()[-1]}<{dtype}" + (
+        f", {dim.group(1)}>" if dim else ">")
+
+
+def resource_usage() -> dict[str, dict[str, int]]:
+    """Registers a thread, stack bytes and local memory bytes (where
+    ptxas spills) of every kernel of the built extension, by readable
+    name (``cuobjdump -res-usage``)."""
+    usage, name = {}, None
+    for line in cuobjdump("-res-usage").splitlines():
+        if "Function " in line:
+            name = kernel_name(line)
+        elif name is not None and "REG:" in line:
+            usage[name] = {k: int(v) for k, v in
+                           re.findall(r"\b(REG|STACK|LOCAL):(\d+)", line)}
+            name = None
+    return usage
+
+
+def sass_mma_counts() -> dict[str, dict[str, int]]:
+    """Tensor-core instructions (HGMMA: warpgroup MMA; HMMA: warp MMA) in
+    the SASS of every kernel of the built extension, by readable name."""
     counts, name = {}, None
-    for line in sass.splitlines():
+    for line in cuobjdump("-sass").splitlines():
         if "Function : " in line:
-            fn = SASS_FN.search(line)
-            args = (fn.group(2) if fn else "") or ""
-            dtype = "float32" if args.startswith("f") else "bfloat16"
-            dim = re.search(r"Li(\d+)E", args + "E")
-            name = f"{fn.group(1) if fn else line.split()[-1]}<{dtype}" + (
-                f", {dim.group(1)}>" if dim else ">")
+            name = kernel_name(line)
             counts[name] = {"HGMMA": 0, "HMMA": 0}
         elif name is not None:
             for op in counts[name]:
@@ -284,7 +357,7 @@ def sass_mma_counts() -> dict[str, dict[str, int]]:
     return counts
 
 
-def phase_build() -> None:
+def phase_build() -> dict[str, dict[str, int]]:
     t0 = time.perf_counter()
     build.extension(verbose=True)
     seconds = time.perf_counter() - t0
@@ -305,9 +378,16 @@ def phase_build() -> None:
     require(simt == ["ssd_fwd<float32>"]
             and ssd[simt[0]] == {"HGMMA": 0, "HMMA": 0},
             f"the CUDA-core SSD body must exist for fp32 only: {ssd}")
+    usage = resource_usage()
+    d256 = [f"{k}_tc<bfloat16, 256>" for k in ("flash_fwd", "chunked_fwd")] \
+        + [f"{k}<float32, 256>" for k in ("flash_fwd", "chunked_fwd")]
+    require(all(k in usage for k in d256),
+            f"the attention kernels at head dim 256: {sorted(usage)}")
     log(phase="build", seconds=seconds,
         sources=[str(s.relative_to(Path(__file__).resolve().parent))
-                 for s in build.SOURCES], sass_mma=counts)
+                 for s in build.SOURCES], sass_mma=counts,
+        registers_stack_local=usage)
+    return usage
 
 
 def attention_cases(gen, added, kernel, name: str) -> dict[str, float]:
@@ -359,10 +439,14 @@ def phase_kernel(gen, added, peaks: tuple[float, float]) -> dict:
     return rec
 
 
-def attn_work(b, hq, hkv, s, d) -> tuple[int, int]:
-    """(flops, bytes) of causal prefill attention: half of 4 B H S^2 D
-    multiply-adds; q, o, k, v each moved once in bf16."""
-    return 2 * b * hq * s * s * d, 2 * b * s * (2 * hq + 2 * hkv) * d
+def attn_work(b, hq, hkv, s, d, window: int = 0) -> tuple[int, int]:
+    """(flops, bytes) of causal prefill attention: 4 D flops (q.k and p.v)
+    for each (query, key) pair the mask shows, per batch and q head: S (S +
+    1) / 2 causal pairs, fewer under a ``window`` of w (w (w + 1) / 2 + (S
+    - w) w); q, o, k, v each moved once in bf16."""
+    w = min(window or s, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w
+    return 4 * b * hq * pairs * d, 2 * b * s * (2 * hq + 2 * hkv) * d
 
 
 def bound(flops, nbytes, peaks) -> tuple[float, str]:
@@ -389,36 +473,70 @@ def kernel_record(name, source, replaces, err, ms, plain_ms, lib_ms, flops,
             "tflops": flops / ms / 1e9, "share_of_bound": bound_ms / ms}
 
 
-def kv_rel_err(cache, ref, s: int) -> tuple[float, float, int]:
-    """Largest per-position relative L2 error (over Hkv x hd) of the first
-    ``s`` cached K/V rows against ``ref``'s, over layers, lanes and
-    positions: (all positions, the late half, worst layer)."""
-    worst, late, layer = 0.0, 0.0, -1
-    for key in ("k", "v"):
-        for i in range(cache[key].shape[0]):
-            a = cache[key][i, :, :s].float().flatten(2)
-            b = ref[key][i, :, :s].float().flatten(2)
+def slot_positions(s: int, slots: int, device) -> torch.Tensor:
+    """The position each cache slot holds after a prefill of ``s`` tokens:
+    rows 0..s-1 of a full leaf, or the last ``slots`` positions of a
+    rolling leaf shorter than ``s``, position p at slot p % slots."""
+    if slots >= s:
+        return torch.arange(s, device=device)
+    j = torch.arange(slots, device=device)
+    return s - slots + torch.remainder(j - s, slots)
+
+
+def kv_rel_err(cache, ref, s: int) -> tuple[float, float, str]:
+    """Largest per-position relative L2 error (over Hkv x hd) of every
+    cached K/V row of every layer against ``ref``'s, the rolling leaves in
+    their rolled order, over layers, lanes and positions: (all positions,
+    the late half of the prompt, the worst leaf and layer)."""
+    worst, late, where = 0.0, 0.0, ""
+    for key in cache:
+        if key == "pos":
+            continue
+        leaf, other = cache[key], ref[key]
+        layers = leaf.reshape(-1, *leaf.shape[-4:])
+        others = other.reshape(-1, *other.shape[-4:])
+        pos = slot_positions(s, leaf.shape[-3], leaf.device)
+        is_late = pos >= s // 2
+        for i in range(layers.shape[0]):
+            a = layers[i, :, :len(pos)].float().flatten(2)
+            b = others[i, :, :len(pos)].float().flatten(2)
             e = (a - b).norm(dim=-1) / b.norm(dim=-1)
             if float(e.max()) > worst:
-                worst, layer = float(e.max()), i
-            late = max(late, float(e[:, s // 2:].max()))
-    return worst, late, layer
+                worst, where = float(e.max()), f"{key}[{i}]"
+            if bool(is_late.any()):
+                late = max(late, float(e[:, is_late].max()))
+    return worst, late, where
 
 
 @contextlib.contextmanager
-def causal_mask_one_ahead():
-    """The control: prefill attention (plain chunked) whose causal mask
-    lets every query see the key one position ahead, the off-by-one a
-    faulty kernel could make."""
-    def leaky(q, k, v, *, causal, window, impl):
-        return attention.flash_attention_xla(q, k, v, causal=causal,
-                                             window=window, q_offset=1)
+def prefill_attention(fn):
+    """Every prefill attention call of the model replaced by ``fn(q, k, v,
+    causal, window)``: a control."""
     saved = transformer.context_attention
-    transformer.context_attention = leaky
+    transformer.context_attention = \
+        lambda q, k, v, *, causal, window, impl: fn(q, k, v, causal, window)
     try:
         yield
     finally:
         transformer.context_attention = saved
+
+
+def causal_mask_one_ahead():
+    """The control: prefill attention (plain chunked) whose causal mask
+    lets every query see the key one position ahead, the off-by-one a
+    faulty kernel could make."""
+    return prefill_attention(
+        lambda q, k, v, causal, window: attention.flash_attention_xla(
+            q, k, v, causal=causal, window=window, q_offset=1))
+
+
+def window_ignored():
+    """The control: prefill attention (plain chunked) whose sliding-window
+    layers see every earlier key (window 0), a kernel or model that drops
+    the window."""
+    return prefill_attention(
+        lambda q, k, v, causal, window: attention.flash_attention_xla(
+            q, k, v, causal=causal, window=0))
 
 
 def phase_prefill(gen, rec: dict):
@@ -490,7 +608,10 @@ def phase_prefill(gen, rec: dict):
     return cfg, model, params, cache, last
 
 
-def phase_decode(cfg, model, params, cache, last, prompt: int) -> None:
+def phase_decode(cfg, model, params, cache, last, prompt: int):
+    """``DECODE_STEPS`` greedy steps from a prefilled cache, timed one by
+    one; returns the tokens (B, DECODE_STEPS + 1), the first from the
+    prefill's last hidden state."""
     tok = embedloss.greedy(last, params["embed"], valid_vocab=cfg.vocab)
     toks, times = [tok], []
     for _ in range(DECODE_STEPS):
@@ -509,6 +630,7 @@ def phase_decode(cfg, model, params, cache, last, prompt: int) -> None:
         steps=DECODE_STEPS,
         step_ms_p50=statistics.median(times) * 1e3,
         step_ms_max=max(times) * 1e3, tokens=toks[0].tolist())
+    return toks
 
 
 def solo_tokens(model, params, prompt, slots: int) -> list[int]:
@@ -525,17 +647,41 @@ def first_diff(a, b):
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
 
-def phase_serve(gen, cfg, model, params, solo_slots: int = 1) -> None:
+def fp32_witness(cfg, params, n_layers: int | None):
+    """An fp32 model of the first ``n_layers`` layers (all with None) and
+    its weights: the bf16 weights cut along their stack dims to that
+    depth and cast (bf16 -> fp32 is exact). Full width: every layer's
+    shapes, the embedding table and the final norm are the model's."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32",
+                                n_layers=n_layers or cfg.n_layers)
+    m32 = Model(cfg32)
+
+    def cut(t, shape):
+        return t[tuple(slice(0, n) for n in shape)].float()
+
+    p32 = {g: ({k: cut(params[g][k], sh) for k, sh in shapes.items()}
+               if isinstance(shapes, dict) else cut(params[g], shapes))
+           for g, shapes in m32.param_shapes().items()}
+    return m32, p32
+
+
+def phase_serve(gen, cfg, model, params, witness_layers=None) -> None:
     """Six requests through four slots. Request 0 must get the tokens it
-    gets served alone by an engine of ``solo_slots`` slots: 1 for phi3;
-    4 for zamba2, whose bf16 forward turns the different rounding of
-    cuBLAS's M=1 and M=4 GEMMs into other greedy tokens within a few steps
-    (the 1-slot comparison is logged beside it), while with four slots in
-    both runs lane 0's rows meet the same kernels and only a leak from the
-    other lanes' admissions and resets can change its tokens. For zamba2
-    the same solo runs in fp32, where that rounding is 2^16 times finer,
-    must agree between one and four slots, so that a fault of one slot
-    alone cannot hide behind the rounding."""
+    gets served alone by an engine of the same four slots: in bf16 the
+    different rounding of cuBLAS's M=1 and M=4 GEMMs turns into other
+    greedy tokens within a few steps (on zamba2, and on phi3 and gemma3
+    for some prompts), so a 1-slot solo run is only logged, while
+    with four slots in both runs lane 0's rows meet the same kernels and
+    only a leak from the other lanes' admissions and resets can change its
+    tokens. An fp32 witness, where that rounding is 2^16 times finer, must
+    give equal tokens served alone by one and by four slots, so that a
+    fault of one slot alone cannot hide behind the rounding. It runs at
+    full width and, where fp32 weights of every layer do not fit beside
+    the bf16 ones, over the first ``witness_layers`` layers: the one cut
+    of this phase (phi3: 4 of 40 layers; gemma3: one superblock, 6 of 48;
+    zamba2: every layer)."""
+    solo_slots = 4
     lens = torch.randint(32, 65, (6,), generator=gen, device=DEVICE).tolist()
     prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen,
                              device=DEVICE).tolist() for n in lens]
@@ -562,21 +708,20 @@ def phase_serve(gen, cfg, model, params, solo_slots: int = 1) -> None:
     require(mid_run, "no request was admitted mid-run")
 
     extra = {}
-    if solo_slots != 1:
-        one = solo_tokens(model, params, prompts[0], 1)
-        extra["one_slot_solo_equal"] = one == reqs[0].out
-        extra["one_slot_solo_first_diff"] = first_diff(one, reqs[0].out)
-        m32 = Model(dataclasses.replace(cfg, param_dtype="float32",
-                                        compute_dtype="float32"))
-        p32 = fp32_params(params)
-        one32, four32 = (solo_tokens(m32, p32, prompts[0], n)
-                         for n in (1, solo_slots))
-        del p32
-        extra["fp32_one_slot_solo_first_diff"] = first_diff(one32, four32)
-        extra["fp32_solo_tokens"] = four32
-        require(one32 == four32,
-                f"fp32 solo runs with 1 and {solo_slots} slots part at "
-                f"token {extra['fp32_one_slot_solo_first_diff']}")
+    one = solo_tokens(model, params, prompts[0], 1)
+    extra["one_slot_solo_equal"] = one == reqs[0].out
+    extra["one_slot_solo_first_diff"] = first_diff(one, reqs[0].out)
+    m32, p32 = fp32_witness(cfg, params, witness_layers)
+    one32, four32 = (solo_tokens(m32, p32, prompts[0], n)
+                     for n in (1, solo_slots))
+    del p32
+    extra["fp32_witness_layers"] = m32.cfg.n_layers
+    extra["fp32_one_slot_solo_first_diff"] = first_diff(one32, four32)
+    extra["fp32_solo_tokens"] = four32
+    require(one32 == four32,
+            f"fp32 witness ({m32.cfg.n_layers} of {cfg.n_layers} layers): "
+            f"solo runs with 1 and {solo_slots} slots part at token "
+            f"{extra['fp32_one_slot_solo_first_diff']}")
     solo = solo_tokens(model, params, prompts[0], solo_slots)
     require(solo == reqs[0].out,
             f"the first request's tokens differ from its solo run "
@@ -909,12 +1054,6 @@ def prefill_errs(cache, last, ref_cache, ref_last, s: int) -> dict:
             **leaf_rel_err(cache, ref_cache, s)}
 
 
-def fp32_params(params):
-    """An fp32 copy of the weights (bf16 -> fp32 is exact)."""
-    return {g: ({k: v.float() for k, v in t.items()} if isinstance(t, dict)
-                else t.float()) for g, t in params.items()}
-
-
 def phase_zamba_prefill(gen, fa_rec, ca_rec, ssd_rec):
     cfg = get_config("zamba2-7b")
     model = Model(cfg)
@@ -977,9 +1116,8 @@ def phase_zamba_prefill(gen, fa_rec, ca_rec, ssd_rec):
     # fp32 weights and activations: the truth the bf16 paths round away
     # from, and the arithmetic in which the kernels must agree with the
     # plain path to FP32_REL_TOL
-    p32 = fp32_params(params)
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
-                                compute_dtype="float32")
+    m32, p32 = fp32_witness(cfg, params, None)
+    cfg32 = m32.cfg
     truth = Model(dataclasses.replace(cfg32, attn_impl="xla_flash",
                                       ssd_impl="blocked")).prefill(
         p32, batch, CACHE_LEN)
@@ -1052,6 +1190,202 @@ def phase_zamba_prefill(gen, fa_rec, ca_rec, ssd_rec):
     return cfg, model, params, cache, last
 
 
+# =============================================================== gemma3-12b
+def phase_gemma_kernels(gen, peaks, fa_rec, ca_rec, usage) -> None:
+    """Both attention kernels at head dim 256: against their plain version
+    on ``D256_CASES`` in fp32 (the CUDA-core bodies, 2e-5) and bf16 (the
+    ``wgmma`` bodies, 2e-2), and at gemma3-12b's two prefill shapes in bf16
+    (global causal, and the windowed layers' window of 1024), with kernel,
+    plain and library times, the bound of the pairs the mask shows,
+    TFLOP/s and the share of the bound. Adds each kernel's gemma3 numbers
+    to its record."""
+    errs = {}
+    kernels = (("flash", fa.flash_attention_cuda, fa_rec),
+               ("chunked", ca.chunked_attention_cuda, ca_rec))
+    for case in D256_CASES:
+        b, hq, hkv, sq, skv, d, causal, window = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(gen, b, hq, hkv, sq, skv, d, dtype)
+            ref = attention_kernel_ref(q, k, v, causal=causal, window=window)
+            for name, kernel, _ in kernels:
+                out = kernel(q, k, v, causal=causal, window=window)
+                torch.cuda.synchronize()
+                err = max_err(out, ref)
+                require(out.shape == ref.shape and err < TOL[dtype],
+                        (name, case, dtype, err))
+                errs[f"{name}/{case}/{str(dtype)[6:]}"] = err
+
+    b, hq, hkv, s, d = GEMMA_ATTN
+    q, k, v = qkv(gen, b, hq, hkv, s, s, d, torch.bfloat16)
+    for shape, window in (("global", 0), ("window", GEMMA_WINDOW)):
+        ref = attention_kernel_ref(q, k, v, causal=True, window=window)
+        plain_ms = time_ms(lambda: attention_kernel_ref(
+            q, k, v, causal=True, window=window), reps=20)
+        lib_ms = library_ms(q, k, v, window)
+        flops, nbytes = attn_work(b, hq, hkv, s, d, window)
+        bound_ms, bound_by = bound(flops, nbytes, peaks)
+        for name, kernel, rec in kernels:
+            out = kernel(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            require(bool(torch.isfinite(out).all())
+                    and err < TOL[torch.bfloat16],
+                    f"{name} kernel error {err} at gemma3's {shape} shape")
+            ms = time_ms(lambda: kernel(q, k, v, causal=True, window=window))
+            rec.setdefault("gemma3_shapes", {})[shape] = {
+                "shape": list(GEMMA_ATTN), "window": window,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms, "gflop": flops / 1e9,
+                "tflops": flops / ms / 1e9, "share_of_bound": bound_ms / ms}
+            del out
+        del ref
+    log(phase="gemma3_kernels", cases=len(errs), max_abs_err_cases=errs,
+        flash=fa_rec["gemma3_shapes"], chunked=ca_rec["gemma3_shapes"],
+        registers_stack_local_d256={
+            k: v for k, v in usage.items() if k.endswith(", 256>")})
+
+
+def phase_gemma_prefill(gen, fa_rec, ca_rec):
+    """gemma3-12b at full width and depth, bf16, seeded random weights:
+    4 x 2048 tokens through 40 windowed and 8 global layers, exactly 48
+    flash launches, or 48 chunked ones on the chunked path. Both paths'
+    last hidden state and every cached K/V row (the rolling leaves in
+    their rolled order) against the plain prefill (windowed layers through
+    ``window_attention_xla``), as phi3's; two controls must fail the same
+    gate: the causal mask one key ahead, and windowed layers that ignore
+    the window."""
+    cfg = get_config("gemma3-12b")
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    b, _, _, s, _ = GEMMA_ATTN
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=DEVICE)
+    batch = {"tokens": tokens}
+    model.prefill(params, batch, CACHE_LEN)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    cache, last = model.prefill(params, batch, CACHE_LEN)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated()
+    launches = {"kernel": launch_counts()}
+    want = {"ssd_scan": 0, "flash_attention": cfg.n_layers,
+            "chunked_attention": 0}
+    require(launches["kernel"] == want,
+            f"gemma3 prefill launches {launches['kernel']}, want {want}")
+    require(last.shape == (b, cfg.d_model) and torch.isfinite(last).all(),
+            "last hidden state shape or finiteness")
+    require(cache["k_local"].shape[-3] == GEMMA_WINDOW < s,
+            "the windowed layers' caches must roll")
+
+    chunked = Model(dataclasses.replace(cfg, attn_impl="chunked"))
+    reset_launches()
+    t0 = time.perf_counter()
+    runs = {"chunked": chunked.prefill(params, batch, CACHE_LEN)}
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    launches["chunked"] = launch_counts()
+    want_c = dict(want, flash_attention=0, chunked_attention=cfg.n_layers)
+    require(launches["chunked"] == want_c,
+            f"gemma3 chunked prefill launches {launches['chunked']}, "
+            f"want {want_c}")
+    runs["kernel"] = (cache, last)
+    plain = Model(dataclasses.replace(cfg, attn_impl="xla_flash"))
+    t0 = time.perf_counter()
+    plain_cache, plain_last = plain.prefill(params, batch, CACHE_LEN)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    for name, control in (("control_mask_one_ahead", causal_mask_one_ahead),
+                          ("control_window_ignored", window_ignored)):
+        with control():
+            runs[name] = plain.prefill(params, batch, CACHE_LEN)
+    errs = {}
+    for name in list(runs):
+        run_cache, run_last = runs.pop(name) if name != "kernel" \
+            else runs[name]
+        kv, kv_late, worst = kv_rel_err(run_cache, plain_cache, s)
+        errs[name] = {"last": rel_max(run_last, plain_last), "kv": kv,
+                      "kv_late_half": kv_late, "kv_worst": worst}
+        del run_cache, run_last
+    del runs, plain_cache
+    for name in ("kernel", "chunked"):
+        e = errs[name]
+        require(e["last"] <= PREFILL_REL_TOL,
+                f"gemma3 {name} prefill: last hidden state {e['last']} > "
+                f"{PREFILL_REL_TOL}")
+        require(e["kv"] <= KV_REL_TOL,
+                f"gemma3 {name} prefill: K/V relative error {e['kv']} "
+                f"({e['kv_worst']}) > {KV_REL_TOL}")
+    for name in ("control_mask_one_ahead", "control_window_ignored"):
+        e = errs[name]
+        require(min(e["kv"], e["kv_late_half"]) > KV_REL_TOL,
+                f"the {name} reads {e['kv']}, {e['kv_late_half']} over the "
+                f"late half, not above {KV_REL_TOL}: the K/V gate cannot see "
+                "it")
+    fa_rec["launches_by_path"]["gemma3-12b prefill"] = \
+        launches["kernel"]["flash_attention"]
+    ca_rec["launches_by_path"]["gemma3-12b chunked prefill"] = \
+        launches["chunked"]["chunked_attention"]
+    log(phase="prefill", arch=cfg.name, params=sum(
+        t.numel() for g in params.values()
+        for t in (g.values() if isinstance(g, dict) else [g])),
+        init_s=init_s, batch=b, prompt=s, cache_len=CACHE_LEN,
+        window=cfg.window, prefill_s=prefill_s,
+        prefill_tokens_per_s=b * s / prefill_s, chunked_prefill_s=chunked_s,
+        plain_prefill_s=plain_s, launches=launches, err_vs_plain=errs,
+        rel_err_limit=PREFILL_REL_TOL, kv_rel_err_limit=KV_REL_TOL,
+        init_peak_mem_gb=init_peak / 1e9,
+        prefill_peak_mem_gb=prefill_peak / 1e9,
+        run_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return cfg, model, params, cache, last, tokens
+
+
+def phase_gemma_decode(cfg, model, params, cache, last, tokens) -> None:
+    """``DECODE_STEPS`` steps from position 2048, writing rolling slots 0
+    to 15 of every windowed layer; then layer 0's rolling K/V, which depend
+    only on the tokens and their positions, must equal those of a fresh
+    prefill of the same 2064 tokens within ``KV_REL_TOL`` at every slot. A
+    control reads the decoded slots against the fresh prefill's next slot
+    (the off-by-one a wrong slot index makes) and must fail the gate on K,
+    which RoPE ties to its position (V is logged only: greedy decoding may
+    repeat a token, and then neighbouring V rows are equal)."""
+    s = tokens.shape[1]
+    toks = phase_decode(cfg, model, params, cache, last, s)
+    seen = torch.cat([tokens, toks[:, :DECODE_STEPS].to(tokens.dtype)],
+                     dim=1)
+    fresh, _ = model.prefill(params, {"tokens": seen}, CACHE_LEN)
+    errs = {}
+    for key in ("k_local", "v_local"):
+        a = cache[key][0, 0].float().flatten(2)
+        b = fresh[key][0, 0].float().flatten(2)
+        e = (a - b).norm(dim=-1) / b.norm(dim=-1)
+        nxt = b.roll(-1, dims=1)[:, :DECODE_STEPS]   # each slot's next
+        shifted = (a[:, :DECODE_STEPS] - nxt).norm(dim=-1) / nxt.norm(dim=-1)
+        errs[key] = {"all_slots": float(e.max()),
+                     "decoded_slots": float(e[:, :DECODE_STEPS].max()),
+                     "control_next_slot": float(shifted.min())}
+    del fresh
+    for key, e in errs.items():
+        require(e["all_slots"] <= KV_REL_TOL,
+                f"layer 0 {key} after decode vs a fresh prefill: "
+                f"{e['all_slots']} > {KV_REL_TOL}")
+    require(errs["k_local"]["control_next_slot"] > KV_REL_TOL,
+            f"layer 0 K: the next-slot control reads "
+            f"{errs['k_local']['control_next_slot']}, not above "
+            f"{KV_REL_TOL}: the gate cannot see a wrong slot")
+    log(phase="decode_rolling", arch=cfg.name, start_pos=s,
+        slots=[s % GEMMA_WINDOW, (s + DECODE_STEPS - 1) % GEMMA_WINDOW],
+        layer0_rel_err_vs_fresh_prefill=errs, limit=KV_REL_TOL)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1072,13 +1406,13 @@ def main() -> int:
     added.manual_seed(SEED + 1)
 
     peaks = PEAKS[card]
-    phase_build()
+    usage = phase_build()
     fa_rec = phase_kernel(gen, added, peaks)
     reset_launches()
     cfg, model, params, cache, last = phase_prefill(gen, fa_rec)
     phase_decode(cfg, model, params, cache, last, PHI3_ATTN[3])
     del cache
-    phase_serve(gen, cfg, model, params)
+    phase_serve(gen, cfg, model, params, witness_layers=PHI3_WITNESS_LAYERS)
     phase_profile(gen, cfg, model, params, PHI3_ATTN[0], PHI3_ATTN[3])
     held = torch.cuda.memory_allocated()
     del cfg, model, params, last
@@ -1093,8 +1427,22 @@ def main() -> int:
         gen, fa_rec, ca_rec, ssd_rec)
     phase_decode(cfg, model, params, cache, last, ZAMBA_ATTN[3])
     del cache
-    phase_serve(gen, cfg, model, params, solo_slots=4)
+    phase_serve(gen, cfg, model, params)
     phase_profile(gen, cfg, model, params, ZAMBA_ATTN[0], ZAMBA_ATTN[3])
+    held = torch.cuda.memory_allocated()
+    del cfg, model, params, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(phase="free", arch="zamba2-7b", held_gb=held / 1e9,
+        after_gb=torch.cuda.memory_allocated() / 1e9)
+
+    phase_gemma_kernels(gen, peaks, fa_rec, ca_rec, usage)
+    cfg, model, params, cache, last, tokens = phase_gemma_prefill(
+        gen, fa_rec, ca_rec)
+    phase_gemma_decode(cfg, model, params, cache, last, tokens)
+    del cache
+    phase_serve(gen, cfg, model, params, witness_layers=GEMMA_WITNESS_LAYERS)
+    phase_profile(gen, cfg, model, params, GEMMA_ATTN[0], GEMMA_ATTN[3])
 
     print(smi_name_power(), flush=True)
     print(json.dumps({"kernels": [fa_rec, ca_rec, ssd_rec]}), flush=True)

@@ -1,4 +1,6 @@
 """Architecture registry of the port: importing this package registers every
-architecture whose model family the port runs (dense, ssm, hybrid)."""
+architecture whose model family the port runs (dense, with or without a
+sliding window; ssm; hybrid)."""
 from repro_torch.configs import (  # noqa: F401
-    mamba2_1_3b, phi3_medium_14b, stablelm_3b, zamba2_7b)
+    gemma3_1b, gemma3_12b, mamba2_1_3b, phi3_medium_14b, stablelm_3b,
+    zamba2_7b)

@@ -43,8 +43,9 @@ def _walk(tree, shapes, dtype, dev, path: str):
 def params_from_jax(tree, cfg: ModelConfig, device=None) -> dict:
     """The reference's parameters (nested dict of numpy arrays) as the
     port's, in ``cfg.param_dtype`` on ``device`` (default ``cuda``). Every
-    group (``layers``; hybrid ``mamba``, ``tail``, ``shared_attn``) is
-    walked against ``Model.param_shapes``; a missing or extra name or a
+    group (``layers``; windowed dense ``local``, ``global``, ``tail``;
+    hybrid ``mamba``, ``tail``, ``shared_attn``) is walked against
+    ``Model.param_shapes``; a missing or extra name or a
     wrong shape raises ``ValueError``."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)

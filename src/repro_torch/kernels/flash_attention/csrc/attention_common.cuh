@@ -32,7 +32,10 @@
 // 8 x 16-byte core matrices makes a warp either read eight rows at once or
 // write eight times into the same banks). D = 112 (224 bytes a row)
 // and D = 32 do not fill their last atom: the tile is padded to 128 and 64
-// columns, the padding zeroed once and never read.
+// columns, the padding zeroed once and never read. D = 256 (gemma3) spans
+// four atoms: its tiles take 197.6 KB of shared memory a block, and a
+// thread holds the 64 x 256 fp32 O fragment of its warpgroup in 128
+// registers (P V is one m64n256k16, the widest N wgmma takes).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -46,10 +49,15 @@
 namespace attn {
 
 constexpr int BQ = 32;               // query rows per block
-constexpr int BK = 32;               // kv rows per shared-memory tile
 constexpr int TPR = 4;               // threads per query row
 constexpr int NTHREADS = BQ * TPR;   // 128
 constexpr float NEG = -1e30f;
+
+// kv rows per shared-memory tile: 32, or 16 at D = 256, so that the fp32 K
+// and V tiles (2 * BK * D * 4 bytes: 32 KB either way) stay within the
+// 48 KB of static shared memory.
+template <int D>
+__host__ __device__ constexpr int simt_bk() { return D > 128 ? 16 : 32; }
 
 struct Params {
   const void* q;
@@ -87,6 +95,7 @@ inline Params make_params(const void* q, const void* k, const void* v,
     case 64: KERNEL<T, 64><<<grid, attn::NTHREADS, 0, stream>>>(p); break;  \
     case 112: KERNEL<T, 112><<<grid, attn::NTHREADS, 0, stream>>>(p); break; \
     case 128: KERNEL<T, 128><<<grid, attn::NTHREADS, 0, stream>>>(p); break; \
+    case 256: KERNEL<T, 256><<<grid, attn::NTHREADS, 0, stream>>>(p); break; \
     default: return cudaErrorInvalidValue;                                  \
   }
 
@@ -358,6 +367,7 @@ cudaError_t launch(void (*kernel)(Params), const Params& p, int batch, int hq,
     case 64: return attn::tc::launch<64>(KERNEL<64>, p, batch, hq, stream);    \
     case 112: return attn::tc::launch<112>(KERNEL<112>, p, batch, hq, stream); \
     case 128: return attn::tc::launch<128>(KERNEL<128>, p, batch, hq, stream); \
+    case 256: return attn::tc::launch<256>(KERNEL<256>, p, batch, hq, stream); \
     default: return cudaErrorInvalidValue;                                     \
   }
 

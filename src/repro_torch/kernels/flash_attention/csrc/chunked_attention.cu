@@ -31,7 +31,7 @@
 // bounds compute the same function).
 //
 // Layout: the flash kernel's (strided (B, S, H, D) reads, masks instead of
-// padding). Head dims 32, 64, 112 and 128.
+// padding). Head dims 32, 64, 112, 128 and 256.
 #include "attention_common.cuh"
 
 namespace {
@@ -62,6 +62,7 @@ __device__ __forceinline__ void load_q(float (&qr)[D / TPR], const T* qg,
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float (*dst)[D], const T* g,
                                           int64_t ss, int k0, int skv) {
+  constexpr int BK = simt_bk<D>();
   for (int idx = threadIdx.x; idx < BK * D; idx += NTHREADS) {
     const int j = idx / D;
     const int d = idx % D;
@@ -77,6 +78,7 @@ __device__ __forceinline__ void load_kv_tile(float (*ks)[D], float (*vs)[D],
                                              const T* kg, int64_t k_ss,
                                              const T* vg, int64_t v_ss,
                                              int k0, int skv) {
+  constexpr int BK = simt_bk<D>();
   for (int idx = threadIdx.x; idx < BK * D; idx += NTHREADS) {
     const int j = idx / D;
     const int d = idx % D;
@@ -117,8 +119,10 @@ __device__ __forceinline__ bool visible(const Params& p, int kp, int qp) {
 // The kv range [lo, hi) the mask can reach from the q tile starting at q0:
 // causality bounds the top, the window the bottom (the TPU kernels'
 // pl.when block skip); lo is rounded down to a tile start.
+template <int D>
 __device__ __forceinline__ void kv_bounds(const Params& p, int q0, int& lo,
                                           int& hi) {
+  constexpr int BK = simt_bk<D>();
   hi = p.skv;
   if (p.causal) hi = min(hi, q0 + BQ);
   lo = 0;
@@ -144,6 +148,7 @@ __device__ __forceinline__ void store_row(const float (&acc)[D / TPR],
 template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS) chunked_fwd(const Params p) {
   constexpr int DPT = D / TPR;       // head dims per thread
+  constexpr int BK = simt_bk<D>();
   __shared__ __align__(16) float ks[BK][D];
   __shared__ __align__(16) float vs[BK][D];
 
@@ -163,7 +168,7 @@ __global__ void __launch_bounds__(NTHREADS) chunked_fwd(const Params p) {
   float qr[DPT];
   load_q<T, D>(qr, qg, p.q_ss, qp, row_ok, part);
   int lo, hi;
-  kv_bounds(p, q0, lo, hi);
+  kv_bounds<D>(p, q0, lo, hi);
 
   // pass 1: the row max over every reachable kv tile
   float m = NEG;

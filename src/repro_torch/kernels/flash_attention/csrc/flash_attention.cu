@@ -31,7 +31,8 @@
 // so the caller never materialises a transpose; the ragged tail of S is
 // handled by load/store masks, not padding. GQA: the kv head is
 // q_head / group, K/V are never repeated. Head dims 32, 64, 112 (zamba2's
-// shared attention) and 128.
+// shared attention), 128 and 256 (gemma3; the fp32 body's K/V tiles have
+// 16 rows there, attention_common.cuh).
 #include "attention_common.cuh"
 
 namespace {
@@ -42,6 +43,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS) flash_fwd(const Params p) {
   constexpr int DPT = D / TPR;       // head dims per thread
   constexpr int NV = DPT / 4;        // float4 groups per thread
+  constexpr int BK = simt_bk<D>();
   __shared__ __align__(16) float ks[BK][D];
   __shared__ __align__(16) float vs[BK][D];
 

@@ -17,7 +17,10 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_kernel_ref
 
-HEAD_DIMS = (32, 64, 112, 128)
+# the head dims both kernels instantiate (zamba2's shared attention 112,
+# gemma3 256); the smoke configs' 16 runs only on the CPU, through the plain
+# version, and raises here on CUDA
+HEAD_DIMS = (32, 64, 112, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_GRID_YZ = 65535
 

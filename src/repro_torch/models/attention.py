@@ -11,7 +11,9 @@ Prefill paths, chosen by ``ModelConfig.attn_impl``:
                     the same function by another implementation point,
                     likewise its plain version for CPU tensors;
   - ``xla_flash`` : chunked running-softmax attention in plain torch, the
-                    math of the kernel (the name is the reference's);
+                    math of the kernel (the name is the reference's); a
+                    causal sliding window goes to ``window_attention_xla``,
+                    which reads only the keys each query chunk can see;
   - ``naive``     : O(S^2) oracle (tests, tiny shapes).
 Decode attends one token per lane over the cache
 (``decode_attention_local``).
@@ -101,18 +103,62 @@ def flash_attention_xla(q, k, v, *, causal=True, window=0, q_offset=0,
     return _ungroup(o).to(q.dtype)
 
 
+def window_attention_xla(q, k, v, *, window, q_offset=0, q_chunk=0):
+    """Causal sliding-window attention with per-query-chunk KV slicing:
+    each chunk of ``q_chunk`` queries reads only a (window + chunk)-sized
+    KV slice, so the work is O(S * window), not O(S^2). When the slice
+    would cover every key, it is ``flash_attention_xla``."""
+    sq, skv = q.shape[1], k.shape[1]
+    q_chunk = q_chunk or min(512, sq)
+    span = window + q_chunk
+    if span >= skv:
+        return flash_attention_xla(q, k, v, causal=True, window=window,
+                                   q_offset=q_offset)
+    outs = []
+    for a in range(0, sq, q_chunk):
+        start = min(max(q_offset + a - window + 1, 0), skv - span)
+        outs.append(flash_attention_xla(
+            q[:, a:a + q_chunk], k[:, start:start + span],
+            v[:, start:start + span], causal=True, window=window,
+            q_offset=q_offset + a, kv_offset=start, kv_chunk=span))
+    return torch.cat(outs, dim=1)
+
+
 def context_attention(q, k, v, *, causal=True, window=0, impl="kernel"):
     """Prefill attention on one device (the reference's no-mesh branch),
-    dispatched on ``impl`` (``ModelConfig.attn_impl``)."""
+    dispatched on ``impl`` (``ModelConfig.attn_impl``). The CUDA kernels
+    take the window as a mask; the plain path slices the keys as the
+    reference's ``local`` does."""
     if impl == "kernel":
         return fa_ops.flash_attention(q, k, v, causal=causal, window=window)
     if impl == "chunked":
         return fa_ops.chunked_attention(q, k, v, causal=causal, window=window)
     if impl == "xla_flash":
+        if window > 0 and causal:
+            return window_attention_xla(q, k, v, window=window)
         return flash_attention_xla(q, k, v, causal=causal, window=window)
     if impl == "naive":
         return naive_attention(q, k, v, causal=causal, window=window)
     raise ValueError(f"unknown attn_impl {impl!r}; expected one of {IMPLS}")
+
+
+def attend(q, k, v, *, causal=True, window=0, impl="xla_flash",
+           q_offset=0):
+    """The reference's ``attend``: ``naive`` the oracle, ``kernel`` the
+    CUDA flash kernel (the reference's ``pallas``; it takes no query
+    offset), any other ``impl`` the plain path, windowed when causal."""
+    if impl == "naive":
+        return naive_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
+    if impl == "kernel":
+        if q_offset:
+            raise ValueError("the flash kernel takes no query offset")
+        return fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    if window > 0 and causal:
+        return window_attention_xla(q, k, v, window=window,
+                                    q_offset=q_offset)
+    return flash_attention_xla(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
 
 
 # ------------------------------------------------------------------ decode

@@ -1,7 +1,11 @@
 """The model families of the port, counterpart of
 ``repro.models.transformer``:
 
-  dense  : pre-norm decoder transformer (RoPE, GQA, SwiGLU);
+  dense  : pre-norm decoder transformer (RoPE, GQA, SwiGLU); with
+           ``window > 0`` (gemma3) superblocks of ``global_every - 1``
+           sliding-window layers and one global layer, then a tail of
+           ``n_layers % global_every`` windowed layers, each windowed
+           layer decoding over a rolling cache of ``window`` slots;
   ssm    : Mamba2 (SSD) stack;
   hybrid : zamba2 — Mamba2 superblocks of ``shared_attn_every`` layers,
            each followed by one *shared* attention + MLP block (one set of
@@ -9,10 +13,12 @@
            ``n_layers % shared_attn_every`` Mamba2 layers.
 
 Parameters are a dict with the reference's leaf names and its stacked
-layouts (``params["layers"]["wq"]`` is (L, D, Hq*hd); hybrid has
-``mamba`` (n_super, per, ...), ``tail`` (n_tail, ...) and an unstacked
-``shared_attn``), so ``repro_torch.convert.params_from_jax`` loads the
-reference's parameters as they are. The reference's ``lax.scan`` over
+layouts (``params["layers"]["wq"]`` is (L, D, Hq*hd); windowed dense has
+``local`` (n_super, global_every - 1, ...), ``global`` (n_super, ...) and
+``tail`` (n_tail, ...); hybrid has ``mamba`` (n_super, per, ...), ``tail``
+(n_tail, ...) and an unstacked ``shared_attn``), so
+``repro_torch.convert.params_from_jax`` loads the reference's parameters
+as they are. The reference's ``lax.scan`` over
 layers is a Python loop over the stack dims. Its donated, functional
 cache updates are in-place ``copy_`` / ``index_copy_`` / ``index_fill_``
 on a preallocated cache here: a cache passed to ``forward``,
@@ -37,9 +43,11 @@ Params = dict[str, Any]
 
 KINDS = ("dense", "ssm", "hybrid")
 SSD_IMPLS = ("kernel", "blocked")
-# stack dims of each layer group: dense/ssm "layers" (L,), hybrid "mamba"
-# (n_super, per), "tail" (n_tail,), "shared_attn" unstacked
-STACK_DIMS = {"layers": 1, "mamba": 2, "tail": 1, "shared_attn": 0}
+# stack dims of each layer group: dense/ssm "layers" (L,), windowed dense
+# "local" (n_super, global_every - 1) and "global" (n_super,), hybrid
+# "mamba" (n_super, per), "tail" (n_tail,), "shared_attn" unstacked
+STACK_DIMS = {"layers": 1, "local": 2, "global": 1, "mamba": 2, "tail": 1,
+              "shared_attn": 0}
 
 
 def _dt(name: str) -> torch.dtype:
@@ -47,18 +55,19 @@ def _dt(name: str) -> torch.dtype:
 
 
 class Model(nn.Module):
-    """The dense, ssm and hybrid families (``window=0``). Methods take the
-    parameter dict explicitly, as the reference's do, so one model object
-    serves several parameter sets (the tests hold the port against the
-    reference this way)."""
+    """The dense (with or without a sliding window), ssm and hybrid
+    families. Methods take the parameter dict explicitly, as the
+    reference's do, so one model object serves several parameter sets (the
+    tests hold the port against the reference this way)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.kind not in KINDS or cfg.window > 0 or (
+        if cfg.kind not in KINDS or (
+                cfg.window > 0 and cfg.kind != "dense") or (
                 cfg.kind == "hybrid" and cfg.shared_attn_every <= 0):
             raise NotImplementedError(
                 f"{cfg.name}: kind={cfg.kind!r}, window={cfg.window} is not "
-                f"ported yet; the port runs {KINDS} without a window "
+                f"ported yet; the port runs {KINDS}, a window on dense only "
                 "(ROADMAP Queue A item 7)")
         if cfg.ssd_impl not in SSD_IMPLS:
             raise ValueError(f"unknown ssd_impl {cfg.ssd_impl!r}; expected "
@@ -67,16 +76,24 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------ structure
     @property
-    def n_super(self) -> int:
-        """Hybrid superblocks (Mamba2 layers + one shared attention)."""
+    def _period(self) -> int:
+        """Layers per superblock: windowed dense ``global_every``, hybrid
+        ``shared_attn_every``, 0 for the families without superblocks."""
         c = self.cfg
-        return c.n_layers // c.shared_attn_every if c.kind == "hybrid" else 0
+        if c.window > 0:
+            return c.global_every
+        return c.shared_attn_every if c.kind == "hybrid" else 0
+
+    @property
+    def n_super(self) -> int:
+        """Superblocks: windowed dense (local layers + one global layer) or
+        hybrid (Mamba2 layers + one shared attention)."""
+        return self.cfg.n_layers // self._period if self._period else 0
 
     @property
     def n_tail(self) -> int:
-        """Hybrid Mamba2 layers after the last superblock."""
-        c = self.cfg
-        return c.n_layers % c.shared_attn_every if c.kind == "hybrid" else 0
+        """Layers after the last superblock (windowed or Mamba2)."""
+        return self.cfg.n_layers % self._period if self._period else 0
 
     # ---------------------------------------------------------------- init
     def _attn_mlp_shapes(self, stack: tuple) -> dict[str, tuple]:
@@ -103,7 +120,13 @@ class Model(nn.Module):
         c = self.cfg
         out: dict[str, Any] = {"embed": (c.padded_vocab, c.d_model),
                                "ln_final": (c.d_model,)}
-        if c.kind == "dense":
+        if c.window > 0:
+            out["local"] = self._attn_mlp_shapes((self.n_super,
+                                                  c.global_every - 1))
+            out["global"] = self._attn_mlp_shapes((self.n_super,))
+            if self.n_tail:
+                out["tail"] = self._attn_mlp_shapes((self.n_tail,))
+        elif c.kind == "dense":
             out["layers"] = self._attn_mlp_shapes((c.n_layers,))
         elif c.kind == "ssm":
             out["layers"] = self._mamba_shapes((c.n_layers,))
@@ -161,7 +184,7 @@ class Model(nn.Module):
         return params
 
     # ------------------------------------------------------ shared pieces
-    def _attn_train(self, p, x, sin, cos):
+    def _attn_train(self, p, x, sin, cos, window):
         c = self.cfg
         b, s, _ = x.shape
         h = rms_norm(x, p["ln_attn"], c.norm_eps)
@@ -170,7 +193,7 @@ class Model(nn.Module):
         v = (h @ p["wv"]).reshape(b, s, c.n_kv_heads, c.hd)
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
-        o = context_attention(q, k, v, causal=True, window=0,
+        o = context_attention(q, k, v, causal=True, window=window,
                               impl=c.attn_impl)
         return x + o.reshape(b, s, -1) @ p["wo"], (k, v)
 
@@ -184,11 +207,14 @@ class Model(nn.Module):
         return {name: leaf[idx] for name, leaf in tree.items()}
 
     def _layers(self, params: Params, cache=None):
-        """The layer sequence in order, as (kind, params, cache views):
-        ``("attn", p, (k, v))`` for a dense layer or a shared attention
-        application (an attention + MLP block), ``("mamba", p, (conv,
-        state))`` for a Mamba2 layer; the cache views are None without a
-        cache."""
+        """The layer sequence in order, as (kind, params, cache views,
+        window, rolling): ``("attn", p, (k, v), window, rolling)`` for a
+        dense layer, a windowed or global layer or a shared attention
+        application (an attention + MLP block), where ``window`` is its
+        prefill attention's window (0: full causal) and ``rolling`` whether
+        its cache is a rolling buffer of the last ``window`` positions;
+        ``("mamba", p, (conv, state), 0, False)`` for a Mamba2 layer. The
+        cache views are None without a cache."""
         c = self.cfg
 
         def views(*keys_idx):
@@ -196,24 +222,36 @@ class Model(nn.Module):
                 return None
             return tuple(cache[key][idx] for key, idx in keys_idx)
 
-        if c.kind == "dense":
+        if c.window > 0:
+            for si in range(self.n_super):
+                for j in range(c.global_every - 1):
+                    yield ("attn", self._index(params["local"], si, j),
+                           views(("k_local", (si, j)), ("v_local", (si, j))),
+                           c.window, True)
+                yield ("attn", self._index(params["global"], si),
+                       views(("k_global", si), ("v_global", si)), 0, False)
+            for t in range(self.n_tail):
+                yield ("attn", self._index(params["tail"], t),
+                       views(("k_tail", t), ("v_tail", t)), c.window, True)
+        elif c.kind == "dense":
             for i in range(c.n_layers):
                 yield ("attn", self._index(params["layers"], i),
-                       views(("k", i), ("v", i)))
+                       views(("k", i), ("v", i)), 0, False)
         elif c.kind == "ssm":
             for i in range(c.n_layers):
                 yield ("mamba", self._index(params["layers"], i),
-                       views(("conv", i), ("state", i)))
+                       views(("conv", i), ("state", i)), 0, False)
         else:
             for si in range(self.n_super):
                 for j in range(c.shared_attn_every):
                     yield ("mamba", self._index(params["mamba"], si, j),
-                           views(("conv", (si, j)), ("state", (si, j))))
+                           views(("conv", (si, j)), ("state", (si, j))),
+                           0, False)
                 yield ("attn", params["shared_attn"],
-                       views(("k_shared", si), ("v_shared", si)))
+                       views(("k_shared", si), ("v_shared", si)), 0, False)
             for t in range(self.n_tail):
                 yield ("mamba", self._index(params["tail"], t),
-                       views(("conv_tail", t), ("state_tail", t)))
+                       views(("conv_tail", t), ("state_tail", t)), 0, False)
 
     # ------------------------------------------------------------- forward
     def forward(self, params: Params, batch: dict, cache=None):
@@ -221,8 +259,10 @@ class Model(nn.Module):
 
         Given a decode ``cache`` (from :meth:`init_cache`, ``seq_len`` >= S),
         each layer writes its cache material into it in place: attention
-        K/V into ``cache[k][..., :S]`` rows, Mamba2 conv inputs and final
-        SSM states into their leaves. The counterpart of the reference's
+        K/V into ``cache[k][..., :S]`` rows, or into a rolling buffer of w
+        slots the last min(S, w) positions, position p at slot p % w (the
+        reference's ``place_rolling``); Mamba2 conv inputs and final SSM
+        states into their leaves. The counterpart of the reference's
         ``collect=True``, which returns them stacked."""
         c = self.cfg
         tokens = batch["tokens"]
@@ -230,7 +270,7 @@ class Model(nn.Module):
         s = x.shape[1]
         sin, cos = rope_table(torch.arange(s, device=x.device), c.hd,
                               c.rope_theta)
-        for kind, p, views in self._layers(params, cache):
+        for kind, p, views, window, rolling in self._layers(params, cache):
             if kind == "mamba":
                 h = rms_norm(x, p["ln_ssm"], c.norm_eps)
                 y, (conv, state) = mamba_block(
@@ -240,19 +280,22 @@ class Model(nn.Module):
                     views[0].copy_(conv)
                     views[1].copy_(state)
                 continue
-            x, (k, v) = self._attn_train(p, x, sin, cos)
+            x, kv = self._attn_train(p, x, sin, cos, window)
             if views is not None:
-                views[0][:, :s].copy_(k)
-                views[1][:, :s].copy_(v)
+                for dst, src in zip(views, kv):
+                    _place(dst, src, rolling)
             x = self._ffn(p, x)
         return rms_norm(x, params["ln_final"], c.norm_eps)
 
     # ================================================================ decode
     def init_cache(self, batch_size: int, seq_len: int, device=None):
         """Zeroed decode cache for a max context of ``seq_len``: per-slot
-        positions ``pos`` (B,) int32; attention K/V (n, B, S, Hkv, hd);
-        Mamba2 conv inputs (n, B, W-1, di+2N) and SSM states
-        (n, B, H, P, N) fp32 — the reference's leaves and shapes."""
+        positions ``pos`` (B,) int32; attention K/V (n, B, S, Hkv, hd),
+        windowed layers' rolling K/V of w = min(window, seq_len) slots
+        (``k_local`` (n_super, global_every - 1, B, w, Hkv, hd), ``k_tail``
+        (n_tail, B, w, Hkv, hd)); Mamba2 conv inputs (n, B, W-1, di+2N) and
+        SSM states (n, B, H, P, N) fp32 — the reference's leaves and
+        shapes."""
         c = self.cfg
         dev = resolve_device(device)
         cdt = _dt(c.compute_dtype)
@@ -261,10 +304,22 @@ class Model(nn.Module):
         def zeros(shape, dtype=cdt):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
-        def kv(n):
-            return (n, b, seq_len, c.n_kv_heads, c.hd)
+        def kv(n, s=seq_len):
+            return (n, b, s, c.n_kv_heads, c.hd)
 
         cache = {"pos": zeros((b,), torch.int32)}
+        if c.window > 0:
+            w = min(c.window, seq_len)
+            local = (self.n_super, c.global_every - 1, b, w, c.n_kv_heads,
+                     c.hd)
+            cache["k_local"] = zeros(local)
+            cache["v_local"] = zeros(local)
+            cache["k_global"] = zeros(kv(self.n_super))
+            cache["v_global"] = zeros(kv(self.n_super))
+            if self.n_tail:
+                cache["k_tail"] = zeros(kv(self.n_tail, w))
+                cache["v_tail"] = zeros(kv(self.n_tail, w))
+            return cache
         if c.kind == "dense":
             cache["k"] = zeros(kv(c.n_layers))
             cache["v"] = zeros(kv(c.n_layers))
@@ -292,7 +347,16 @@ class Model(nn.Module):
         c = self.cfg
         kv = (None, "batch", "kv_seq", None, None)
         ax: dict[str, Any] = {"pos": ("batch",)}
-        if c.kind == "dense":
+        if c.window > 0:
+            local = (None, None, "batch", "kv_seq", None, None)
+            ax["k_local"] = local
+            ax["v_local"] = local
+            ax["k_global"] = kv
+            ax["v_global"] = kv
+            if self.n_tail:
+                ax["k_tail"] = kv
+                ax["v_tail"] = kv
+        elif c.kind == "dense":
             ax["k"] = kv
             ax["v"] = kv
         elif c.kind == "ssm":
@@ -321,9 +385,13 @@ class Model(nn.Module):
             val.index_fill_(axes[key].index("batch"), idx, 0)
         return cache
 
-    def _attn_decode(self, p, x, cache_kv, pos):
+    def _attn_decode(self, p, x, cache_kv, pos, rolling=False):
         """x (B, 1, D); cache_kv = one layer's (k, v) cache views
-        (B, S, Hkv, hd), written in place at each lane's position."""
+        (B, S, Hkv, hd), written in place at each lane's position: slot
+        ``min(pos, S - 1)``, or ``pos % S`` in a rolling buffer, which then
+        holds exactly the window's last S positions and is attended whole
+        (every slot is visible once ``pos >= S - 1``). The slot is computed
+        on the device: no host sync, no branch on a device value."""
         c = self.cfg
         b = x.shape[0]
         k_cache, v_cache = cache_kv
@@ -337,8 +405,9 @@ class Model(nn.Module):
         sin, cos = rope_table(pos[:, None], c.hd, c.rope_theta)
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
-        rows = torch.arange(b, device=x.device) * smax \
-            + torch.clamp(pos, max=smax - 1)
+        slot = torch.remainder(pos, smax) if rolling \
+            else torch.clamp(pos, max=smax - 1)
+        rows = torch.arange(b, device=x.device) * smax + slot
         k_cache.view(b * smax, c.n_kv_heads, c.hd).index_copy_(
             0, rows, k[:, 0].to(k_cache.dtype))
         v_cache.view(b * smax, c.n_kv_heads, c.hd).index_copy_(
@@ -353,7 +422,7 @@ class Model(nn.Module):
         pos = cache["pos"]
         x = embedloss.embed_in(params["embed"], tokens[:, None],
                                _dt(c.compute_dtype))
-        for kind, p, views in self._layers(params, cache):
+        for kind, p, views, _, rolling in self._layers(params, cache):
             if kind == "mamba":
                 h = rms_norm(x, p["ln_ssm"], c.norm_eps)
                 y, (conv, state) = mamba_block(p, h, c.ssm,
@@ -363,7 +432,7 @@ class Model(nn.Module):
                 views[1].copy_(state)
                 x = x + y
             else:
-                x = self._attn_decode(p, x, views, pos)
+                x = self._attn_decode(p, x, views, pos, rolling)
                 x = self._ffn(p, x)
         x = rms_norm(x, params["ln_final"], c.norm_eps)
         nxt = embedloss.greedy(x[:, 0], params["embed"], valid_vocab=c.vocab)
@@ -380,3 +449,17 @@ class Model(nn.Module):
         x = self.forward(params, batch, cache=cache)
         cache["pos"].fill_(s)
         return cache, x[:, -1]
+
+
+def _place(dst: torch.Tensor, src: torch.Tensor, rolling: bool) -> None:
+    """One layer's prefill K or V, src (B, S, Hkv, hd), into its cache view
+    dst (B, Smax, Hkv, hd) in place: rows 0..S-1, or in a rolling buffer of
+    w slots position p at slot p % w, keeping the last w positions when
+    S > w (the reference's ``place_rolling``, with no rolled copy)."""
+    s, w = src.shape[1], dst.shape[1]
+    if not rolling or s <= w:
+        dst[:, :s].copy_(src)
+        return
+    r = s % w                  # slot of position s - w, the oldest kept
+    dst[:, r:].copy_(src[:, s - w:s - r])
+    dst[:, :r].copy_(src[:, s - r:])

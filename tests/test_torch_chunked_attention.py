@@ -86,10 +86,10 @@ def _meta(b, h, s, d, dtype=torch.float32):
     return torch.empty(b, s, h, d, dtype=dtype, device="meta").transpose(1, 2)
 
 
-@pytest.mark.parametrize("d", [32, 64, 112, 128])
+@pytest.mark.parametrize("d", [32, 64, 112, 128, 256])
 def test_check_args_accepts_the_instantiated_head_dims(d):
-    """Both kernels take head dims 32, 64, 112 (zamba2's shared attention)
-    and 128, in fp32 and bf16, through strided views."""
+    """Both kernels take head dims 32, 64, 112 (zamba2's shared attention),
+    128 and 256 (gemma3), in fp32 and bf16, through strided views."""
     for dtype in fa.DTYPES:
         q, k = _meta(4, 32, 64, d, dtype), _meta(4, 8, 64, d, dtype)
         fa.check_args(q, k, k, 0)
@@ -111,3 +111,14 @@ def test_check_args_rejects_what_no_kernel_takes():
                       q, q, 0)
     with pytest.raises(ValueError, match="window"):
         fa.check_args(q, q, q, -1)
+
+
+def test_check_args_rejects_the_smoke_head_dim():
+    """gemma3's smoke configs (head dim 16) run on the CPU only, through
+    the plain version: on CUDA no kernel takes 16, so it raises and never
+    falls back."""
+    assert 256 in fa.HEAD_DIMS and 16 not in fa.HEAD_DIMS
+    for dtype in fa.DTYPES:
+        q, k = _meta(4, 4, 64, 16, dtype), _meta(4, 2, 64, 16, dtype)
+        with pytest.raises(ValueError, match="head dim 16"):
+            fa.check_args(q, k, k, 1024)

@@ -166,8 +166,68 @@ def test_ops_layout_and_attn_impl_dispatch():
     for impl in tattn.IMPLS:
         o = tattn.context_attention(q, k, v, causal=True, impl=impl)
         assert float((o - ref).abs().max()) < 2e-5, impl
+    # a causal window: the plain path slices the keys, the kernels mask
+    wref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), window=7).transpose(1, 2)
+    for impl in tattn.IMPLS:
+        o = tattn.context_attention(q, k, v, causal=True, window=7,
+                                    impl=impl)
+        assert float((o - wref).abs().max()) < 2e-5, impl
     with pytest.raises(ValueError):
         tattn.context_attention(q, k, v, impl="pallas")
+
+
+# the reference grid's sliding-window case, whole (its slice would cover
+# every key) and in query chunks of 64, each reading a 112-key slice; and a
+# query offset into a longer key sequence (context parallelism's shard)
+WINDOW_CASES = [
+    # b, hq, hkv, sq, skv, d, window, q_offset, q_chunk
+    (1, 4, 1, 256, 256, 32, 48, 0, 0),
+    (1, 4, 1, 256, 256, 32, 48, 0, 64),
+    (2, 4, 2, 100, 100, 16, 16, 0, 24),
+    (1, 4, 2, 64, 200, 32, 40, 136, 32),
+]
+
+
+@pytest.mark.parametrize("case", WINDOW_CASES)
+def test_window_attention_xla_matches_jax(case):
+    """The per-query-chunk KV slicing of the plain windowed path, with its
+    fallthrough to ``flash_attention_xla`` when a slice would cover every
+    key, against the reference's ``window_attention_xla``."""
+    b, hq, hkv, sq, skv, d, window, q_offset, q_chunk = case
+    arrs = [a.transpose(0, 2, 1, 3) for a in _qkv(11, b, hq, hkv, sq, skv, d)]
+    (q, k, v), (jq, jk, jv) = _both(arrs, torch.float32, jnp.float32)
+    kw = dict(window=window, q_offset=q_offset, q_chunk=q_chunk)
+    out = tattn.window_attention_xla(q, k, v, **kw)
+    ref = jattn.window_attention_xla(jq, jk, jv, **kw)
+    assert out.shape == (b, sq, hq, d)
+    assert _err(out, ref) < 2e-5
+    if not q_offset:
+        full = attention_ref(*(t.transpose(1, 2) for t in (q, k, v)),
+                             causal=True, window=window)
+        assert float((out - full.transpose(1, 2)).abs().max()) < 2e-5
+
+
+@pytest.mark.parametrize("impl", ["naive", "xla_flash", "kernel"])
+@pytest.mark.parametrize("causal,window,q_offset", [
+    (True, 0, 0), (True, 48, 0), (False, 0, 0), (True, 48, 16),
+    (False, 32, 0)])
+def test_attend_matches_jax(impl, causal, window, q_offset):
+    """``attend`` on each path against the reference's plain ``attend``
+    (its ``pallas`` is the port's ``kernel``, the plain version on the
+    CPU); the kernel takes no query offset and says so."""
+    b, hq, hkv, s, d = 1, 4, 2, 160, 32
+    arrs = [a.transpose(0, 2, 1, 3) for a in _qkv(12, b, hq, hkv, s, s, d)]
+    (q, k, v), (jq, jk, jv) = _both(arrs, torch.float32, jnp.float32)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    ref = jattn.attend(jq, jk, jv, impl="xla_flash", **kw)
+    if impl == "kernel" and q_offset:
+        with pytest.raises(ValueError, match="offset"):
+            tattn.attend(q, k, v, impl=impl, **kw)
+        return
+    out = tattn.attend(q, k, v, impl=impl, **kw)
+    assert _err(out, ref) < 2e-5
+    assert _err(out, jattn.attend(jq, jk, jv, impl="naive", **kw)) < 2e-5
 
 
 @pytest.mark.parametrize("per_lane", [False, True])
@@ -204,6 +264,8 @@ TC_BQ, TC_WG, TC_BK = 128, 64, 64
 # a zamba2-like head dim beside the reference grid; its q rows end inside
 # the second block's first warpgroup
 D112_CASE = (1, 4, 2, 160, 160, 112, True, 0, 32, 32)
+# gemma3's head dim (one m64n256k16 for P.v), on the same rows
+D256_CASE = (1, 4, 2, 160, 160, 256, True, 0, 32, 32)
 
 
 def _tc_emulation(q, k, v, *, causal, window, two_pass):
@@ -269,11 +331,12 @@ def _tc_emulation(q, k, v, *, causal, window, two_pass):
 
 
 @pytest.mark.parametrize("two_pass", [False, True], ids=["flash", "two_pass"])
-@pytest.mark.parametrize("case", FLASH_CASES + [D112_CASE])
+@pytest.mark.parametrize("case", FLASH_CASES + [D112_CASE, D256_CASE])
 def test_tc_emulation_matches_jax_bf16(case, two_pass):
     """The emulated bf16 kernel (flash and two-pass variants) against the
     reference's XLA flash attention and its Pallas kernel of the same
-    variant in interpret mode, on the reference grid and a D=112 case, at
+    variant in interpret mode, on the reference grid and D=112 and D=256
+    cases, at
     the bf16 tolerance: the margin the bf16 rounding of P leaves before
     the card's gates."""
     b, hq, hkv, sq, skv, d, causal, window, bq, bk = case
