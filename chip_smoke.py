@@ -88,6 +88,44 @@ window 1024 and 8 global layers, head dim 256) runs:
             2064 tokens, and a wrong-slot control must fail.
   serve, profile : as for phi3; the fp32 witness is the first superblock
             (6 of 48 layers).
+Then gemma3's 23.5 GB are freed, and the MoE and VLM families run:
+  moe_vlm_kernels : both attention kernels on a GQA group-7 case (arctic's
+            56 q heads over 8 kv heads) in fp32 and bf16, and at the
+            prefill shapes of arctic-480b (4, 56, 8, 2048, 128), kimi-k2
+            (4, 64, 8, 2048, 112) and internvl2-26b (4, 48, 8, 2048, 128)
+            in bf16: kernel, plain and library times, the bound.
+  moe     : arctic-480b at full width cut to its first 2 of 35 layers
+            (every layer is the same block; the whole model is 953 GB):
+            the dispatch slots of its layer 0's routing of 8192 random
+            hidden states on the card equal their CPU result exactly, kept
+            slots unique and in their expert's range; ``moe_local`` with
+            no drops against ``moe_dense_oracle`` on 1024 tokens (relative
+            max-norm 2e-2), a control whose combine weights are not
+            renormalised over the k chosen must fail it; ``moe_local``
+            timed at the prefill (8192) and decode (4) token counts, with
+            each part's device time, against the bound of its expert
+            products and expert weights.
+  prefill : 4 x 2048 tokens, exactly 2 flash launches (2 chunked on the
+            chunked path). Rounding moves router logits, and a token that
+            takes another expert moves by O(1), so the kernel, chunked and
+            control paths replay the plain prefill's expert choices
+            (``routing``): last hidden state, every position's hidden
+            state and every cached K/V row within phi3's 5e-2 of the plain
+            prefill; the mask-one-ahead control must fail. The unforced
+            run's routing agreement and drops are logged.
+  decode  : 16 steps from 2048; layer 0's K/V at positions 2048-2063 equal
+            a fresh prefill's of the 2064 tokens, a next-position control
+            fails. Then profile, and serve as phi3's, request 0 in slot 0;
+            the fp32 witness is layer 0 at full width, cast in place after
+            the bf16 gates (55.4 GB in fp32 does not fit beside 54.9 GB of
+            bf16).
+Then kimi-k2-1t at full width, cut to 1 of 61 layers: moe (dispatch,
+oracle, control, times), prefill (1 flash, 1 chunked launch) and decode,
+gated as arctic's. Then internvl2-26b at full width and depth: prefill of
+4 x 2048 tokens whose first 256 positions are patch embeddings, exactly 48
+flash (or chunked) launches, phi3's gates, the mask-one-ahead control and
+a control whose patches are not spliced; decode, serve (fp32 witness of
+its first 4 layers), profile.
 Then the card's name and power limit, one JSON line of kernel records
 (each with its body per dtype, ``design``, its TFLOP/s and its share of
 the bound), and the result line. Any failure raises and exits non-zero; without a
@@ -100,6 +138,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -120,7 +159,7 @@ from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_kernel_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_ref_sequential  # noqa: E402
-from repro_torch.models import attention, embedloss, ssm, transformer  # noqa: E402
+from repro_torch.models import attention, embedloss, moe, ssm, transformer  # noqa: E402
 from repro_torch.models.config import get_config  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
@@ -243,6 +282,27 @@ SSD_MMA = ("ssd_states", "ssd_out")
 SASS_FN = re.compile(r"(flash_fwd_tc|chunked_fwd_tc|flash_fwd|chunked_fwd|"
                      r"ssd_fwd|ssd_seg|ssd_states|ssd_pass|ssd_out)"
                      r"(?:I(\w*?)EEv|E)")
+# the MoE and VLM families: each architecture's depth on the card (the MoE
+# models at full width, every layer the same block, cut to what fits one
+# 80 GB card: arctic 27,451,755,520 parameters, 54.9 GB in bf16; kimi
+# 18,204,218,368, 36.4 GB; internvl2 whole, 38.6 GB) and its prefill
+# attention shape (batch, q heads, kv heads, prompt, head dim)
+MOE_VLM_DEPTH = {"arctic-480b": 2, "kimi-k2-1t-a32b": 1, "internvl2-26b": 48}
+MOE_VLM_ATTN = {"arctic-480b": (4, 56, 8, 2048, 128),
+                "kimi-k2-1t-a32b": (4, 64, 8, 2048, 112),
+                "internvl2-26b": (4, 48, 8, 2048, 128)}
+# arctic's GQA group (56 / 8 = 7), a group no earlier path ran, on a small
+# causal case (b, hq, hkv, sq, skv, d, causal, window)
+GQA7_CASE = (1, 14, 2, 256, 256, 128, True, 0)
+# MoE layer: tokens of the no-drop check against the per-expert oracle and
+# its relative max-norm limit (bf16 products rounded at other places); the
+# prefill (4 x 2048) and decode (4 slots) token counts it is timed at
+MOE_ORACLE_T, MOE_REL_TOL = 1024, 2e-2
+MOE_TIMED_T = (8192, 4)
+# the fp32 serve witnesses: arctic's layer 0 (55.4 GB in fp32, built in
+# place of the bf16 weights); internvl2's first 4 of 48 layers (8.5 GB)
+ARCTIC_WITNESS_LAYERS = 1
+VLM_WITNESS_LAYERS = 4
 SEED = 0
 DEVICE = "cuda"
 
@@ -634,10 +694,12 @@ def phase_decode(cfg, model, params, cache, last, prompt: int):
 
 
 def solo_tokens(model, params, prompt, slots: int) -> list[int]:
-    """Request 0 served alone by an engine of ``slots`` slots."""
+    """Request 0 served alone by an engine of ``slots`` slots, in slot 0."""
     solo = ServeEngine(model, params, batch_slots=slots, max_len=128)
     alone = Request(rid=0, prompt=prompt, max_new_tokens=16)
     solo.submit(alone)
+    solo.step()
+    require(solo.slots[0] is alone, "a solo request is not in slot 0")
     solo.run_until_idle()
     return alone.out
 
@@ -647,26 +709,49 @@ def first_diff(a, b):
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
 
-def fp32_witness(cfg, params, n_layers: int | None):
+def fp32_witness(cfg, params, n_layers: int | None, in_place=False):
     """An fp32 model of the first ``n_layers`` layers (all with None) and
     its weights: the bf16 weights cut along their stack dims to that
     depth and cast (bf16 -> fp32 is exact). Full width: every layer's
-    shapes, the embedding table and the final norm are the model's."""
+    shapes, the embedding table and the final norm are the model's.
+
+    ``in_place``: the weights are built inside ``params``, which is
+    consumed, for a witness that does not fit beside the bf16 weights
+    (arctic's layer 0: 55.4 GB): first every leaf is cut to its depth (the
+    deeper layers freed), then cast one leaf at a time, each bf16 leaf
+    freed as its fp32 copy lands, so the peak is the fp32 weights plus
+    the largest bf16 leaf."""
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 compute_dtype="float32",
                                 n_layers=n_layers or cfg.n_layers)
     m32 = Model(cfg32)
+    shapes = m32.param_shapes()
 
     def cut(t, shape):
-        return t[tuple(slice(0, n) for n in shape)].float()
+        return t[tuple(slice(0, n) for n in shape)]
 
-    p32 = {g: ({k: cut(params[g][k], sh) for k, sh in shapes.items()}
-               if isinstance(shapes, dict) else cut(params[g], shapes))
-           for g, shapes in m32.param_shapes().items()}
-    return m32, p32
+    if not in_place:
+        return m32, {g: ({k: cut(params[g][k], sh).float()
+                          for k, sh in sub.items()}
+                         if isinstance(sub, dict)
+                         else cut(params[g], sub).float())
+                     for g, sub in shapes.items()}
+    leaves = []
+    for g, sub in shapes.items():
+        if isinstance(sub, dict):
+            leaves += [(params[g], k, sh) for k, sh in sub.items()]
+        else:
+            leaves.append((params, g, sub))
+    for tree, k, sh in leaves:
+        if tuple(tree[k].shape) != tuple(sh):
+            tree[k] = cut(tree[k], sh).clone()
+    for tree, k, _ in leaves:
+        tree[k] = tree[k].float()
+    return m32, params
 
 
-def phase_serve(gen, cfg, model, params, witness_layers=None) -> None:
+def phase_serve(gen, cfg, model, params, witness_layers=None,
+                in_place=False) -> None:
     """Six requests through four slots. Request 0 must get the tokens it
     gets served alone by an engine of the same four slots: in bf16 the
     different rounding of cuBLAS's M=1 and M=4 GEMMs turns into other
@@ -680,7 +765,14 @@ def phase_serve(gen, cfg, model, params, witness_layers=None) -> None:
     full width and, where fp32 weights of every layer do not fit beside
     the bf16 ones, over the first ``witness_layers`` layers: the one cut
     of this phase (phi3: 4 of 40 layers; gemma3: one superblock, 6 of 48;
-    zamba2: every layer)."""
+    zamba2 and kimi: every layer; arctic: layer 0, built ``in_place`` of
+    the bf16 weights after the bf16 gates, so ``params`` is consumed;
+    internvl2: 4 of 48).
+
+    Request 0 is admitted to slot 0 (the first free slot) in every run.
+    In a MoE layer a decode step's tokens share each expert's capacity of
+    C = 1 in (slot, choice) order, so slot 0's assignments are never
+    dropped and its tokens do not depend on what the other slots hold."""
     solo_slots = 4
     lens = torch.randint(32, 65, (6,), generator=gen, device=DEVICE).tolist()
     prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen,
@@ -698,6 +790,7 @@ def phase_serve(gen, cfg, model, params, witness_layers=None) -> None:
         steps += 1
         if first_admit is None:
             first_admit = {r.rid for r in reqs if r.admitted_s is not None}
+            require(engine.slots[0] is reqs[0], "request 0 is not in slot 0")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     require(all(r.done and len(r.out) == 16 for r in reqs),
@@ -711,7 +804,15 @@ def phase_serve(gen, cfg, model, params, witness_layers=None) -> None:
     one = solo_tokens(model, params, prompts[0], 1)
     extra["one_slot_solo_equal"] = one == reqs[0].out
     extra["one_slot_solo_first_diff"] = first_diff(one, reqs[0].out)
-    m32, p32 = fp32_witness(cfg, params, witness_layers)
+    solo = solo_tokens(model, params, prompts[0], solo_slots)
+    require(solo == reqs[0].out,
+            f"the first request's tokens differ from its solo run "
+            f"({solo_slots} slots) from token "
+            f"{first_diff(solo, reqs[0].out)}")
+    torch.cuda.reset_peak_memory_stats()
+    m32, p32 = fp32_witness(cfg, params, witness_layers, in_place)
+    extra["fp32_witness_build_peak_mem_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
     one32, four32 = (solo_tokens(m32, p32, prompts[0], n)
                      for n in (1, solo_slots))
     del p32
@@ -722,11 +823,6 @@ def phase_serve(gen, cfg, model, params, witness_layers=None) -> None:
             f"fp32 witness ({m32.cfg.n_layers} of {cfg.n_layers} layers): "
             f"solo runs with 1 and {solo_slots} slots part at token "
             f"{extra['fp32_one_slot_solo_first_diff']}")
-    solo = solo_tokens(model, params, prompts[0], solo_slots)
-    require(solo == reqs[0].out,
-            f"the first request's tokens differ from its solo run "
-            f"({solo_slots} slots) from token "
-            f"{first_diff(solo, reqs[0].out)}")
     log(phase="serve", arch=cfg.name, requests=len(reqs), prompt_lens=lens,
         steps=steps,
         wall_s=wall, requests_per_s=len(reqs) / wall,
@@ -749,8 +845,11 @@ def _profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # device activity only: the ranges ``moe_local`` opens (user
+    # annotations) also show on the device's timeline, spanning kernels
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
     busy, reach, by_name = 0.0, float("-inf"), {}
     for start, end, name in spans:
         busy += max(0.0, end - max(start, reach))
@@ -1386,6 +1485,433 @@ def phase_gemma_decode(cfg, model, params, cache, last, tokens) -> None:
         layer0_rel_err_vs_fresh_prefill=errs, limit=KV_REL_TOL)
 
 
+# ========================================================= moe and vlm
+def phase_moe_vlm_kernels(gen, peaks, fa_rec, ca_rec) -> None:
+    """Both attention kernels on ``GQA7_CASE`` in fp32 (2e-5) and bf16
+    (2e-2), and at arctic's, kimi's and internvl2's prefill shapes in bf16:
+    kernel, plain and library times, the bound, TFLOP/s and the share of
+    the bound, added to each kernel's record under ``moe_vlm_shapes``."""
+    kernels = (("flash", fa.flash_attention_cuda, fa_rec),
+               ("chunked", ca.chunked_attention_cuda, ca_rec))
+    errs = {}
+    b, hq, hkv, sq, skv, d, causal, window = GQA7_CASE
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = qkv(gen, b, hq, hkv, sq, skv, d, dtype)
+        ref = attention_kernel_ref(q, k, v, causal=causal, window=window)
+        for name, kernel, _ in kernels:
+            out = kernel(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            require(out.shape == ref.shape and err < TOL[dtype],
+                    (name, GQA7_CASE, dtype, err))
+            errs[f"{name}/{str(dtype)[6:]}"] = err
+    for arch, (b, hq, hkv, s, d) in MOE_VLM_ATTN.items():
+        q, k, v = qkv(gen, b, hq, hkv, s, s, d, torch.bfloat16)
+        ref = attention_kernel_ref(q, k, v, causal=True)
+        plain_ms = time_ms(lambda: attention_kernel_ref(q, k, v, causal=True),
+                           reps=20)
+        lib_ms = library_ms(q, k, v)
+        flops, nbytes = attn_work(b, hq, hkv, s, d)
+        bound_ms, bound_by = bound(flops, nbytes, peaks)
+        for name, kernel, rec in kernels:
+            out = kernel(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            require(bool(torch.isfinite(out).all())
+                    and err < TOL[torch.bfloat16],
+                    f"{name} kernel error {err} at {arch}'s shape")
+            ms = time_ms(lambda: kernel(q, k, v, causal=True))
+            rec.setdefault("moe_vlm_shapes", {})[arch] = {
+                "shape": [b, hq, hkv, s, d], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib_ms,
+                "gflop": flops / 1e9, "tflops": flops / ms / 1e9,
+                "share_of_bound": bound_ms / ms}
+            del out
+        del q, k, v, ref
+    log(phase="moe_vlm_kernels", gqa7_case=list(GQA7_CASE),
+        gqa7_max_abs_err=errs, flash=fa_rec["moe_vlm_shapes"],
+        chunked=ca_rec["moe_vlm_shapes"])
+
+
+def init_model(arch: str):
+    """``arch`` at full width and its ``MOE_VLM_DEPTH``, seeded random bf16
+    weights on the card: (cfg, model, params, init record)."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=MOE_VLM_DEPTH[arch])
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    info = {"init_s": time.perf_counter() - t0,
+            "init_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "params": sum(t.numel() for g in params.values()
+                          for t in (g.values() if isinstance(g, dict)
+                                    else [g])),
+            "depth": [cfg.n_layers, get_config(arch).n_layers]}
+    log(phase="init", arch=arch, **info)
+    return cfg, model, params, info
+
+
+@contextlib.contextmanager
+def route_replaced(fn):
+    """Every ``moe.route`` call replaced by ``fn``."""
+    saved = moe.route
+    moe.route = fn
+    try:
+        yield
+    finally:
+        moe.route = saved
+
+
+def routing(record: list | None = None, replay: list | None = None):
+    """``moe.route`` watched or forced. With ``record`` each call's expert
+    choices are appended to it; with ``replay`` (a list recorded from
+    another run of the same batch) the i-th call takes the i-th recorded
+    choices, weighted by the softmax of its own logits at those experts."""
+    route = moe.route
+    calls = iter(replay) if replay is not None else None
+
+    def watched(x2d, w_router, top_k):
+        if calls is None:
+            weights, experts = route(x2d, w_router, top_k)
+        else:
+            experts = next(calls)
+            logits = x2d.float() @ w_router.float()
+            weights = torch.softmax(logits.gather(1, experts), dim=-1)
+        if record is not None:
+            record.append(experts)
+        return weights, experts
+
+    return route_replaced(watched)
+
+
+def not_renormalised(x2d, w_router, top_k):
+    """The control's routing: combine weights from the softmax over all E
+    logits at the k chosen experts, not renormalised over the k."""
+    probs = torch.softmax(x2d.float() @ w_router.float(), dim=-1)
+    return torch.topk(probs, top_k, dim=-1)
+
+
+def moe_parts_ms(x2d, p, mcfg, calls: int = 5) -> dict[str, float]:
+    """Device time (ms) of each part of ``moe_local`` (its profiler ranges:
+    routing and dispatch, the expert products, the combine): the mean over
+    ``calls`` calls of the kernels each range launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    moe.moe_local(x2d, p, mcfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            moe.moe_local(x2d, p, mcfg)
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.events():
+        if e.name.startswith("moe/") and e.device_type == DeviceType.CPU:
+            parts[e.name[4:]] = parts.get(e.name[4:], 0.0) \
+                + e.device_time_total / 1e3 / calls
+    return parts
+
+
+def moe_work(t: int, mcfg, d: int) -> tuple[int, int]:
+    """(flops, bytes) of one ``moe_local`` call on T tokens: the expert
+    products over the E x C buffer rows this design multiplies (capacity
+    padding included), and every expert's and the router's bf16 weights
+    read once, the tokens read and written once."""
+    e, f = mcfg.n_experts, mcfg.d_ff_expert
+    c = moe._capacity(t, mcfg)
+    return 6 * e * c * d * f, 2 * (3 * e * d * f + d * e + 2 * t * d)
+
+
+def phase_moe(gen, cfg, params, peaks) -> dict:
+    """One MoE layer at full width, on layer 0's bf16 weights: the
+    dispatch slots of 8192 routed tokens on the card against their CPU
+    result; ``moe_local`` without drops against ``moe_dense_oracle``, and
+    the not-renormalised control; times at the prefill and decode token
+    counts against the bound."""
+    mcfg, d = cfg.moe, cfg.d_model
+    e = mcfg.n_experts
+    layer = params["layers"]
+    p = {"router": layer["router"][0], "w_gate": layer["moe_gate"][0],
+         "w_up": layer["moe_up"][0], "w_down": layer["moe_down"][0]}
+    t = MOE_TIMED_T[0]
+    x = torch.randn((t, d), generator=gen, device=DEVICE).to(torch.bfloat16)
+    _, experts = moe.route(x, p["router"], mcfg.top_k)
+    cap = moe._capacity(t, mcfg)
+    slot = moe._dispatch_indices(experts, e, cap)
+    cpu = moe._dispatch_indices(experts.cpu(), e, cap)
+    require(torch.equal(slot.cpu(), cpu),
+            f"{cfg.name}: dispatch slots on the card differ from the CPU's")
+    kept = slot[slot < e * cap]
+    require(kept.numel() == kept.unique().numel(),
+            f"{cfg.name}: two kept assignments share a slot")
+    require(bool((slot.div(cap, rounding_mode="floor") == experts)
+                 [slot < e * cap].all()),
+            f"{cfg.name}: a kept slot outside its expert's range")
+    dispatch = {"tokens": t, "top_k": mcfg.top_k, "experts": e,
+                "capacity": cap, "assignments": slot.numel(),
+                "dropped": int((slot == e * cap).sum()),
+                "busiest_expert": int(torch.bincount(
+                    experts.flatten(), minlength=e).max())}
+
+    # no drops: the capacity of the busiest expert's load (capacity factor
+    # E, C = T k, would be a 42 GB buffer at kimi's width)
+    xo = x[:MOE_ORACLE_T]
+    load = int(torch.bincount(moe.route(xo, p["router"], mcfg.top_k)[1]
+                              .flatten(), minlength=e).max())
+    ample = dataclasses.replace(mcfg, capacity_factor=load * e / (
+        MOE_ORACLE_T * mcfg.top_k))
+    require(moe._capacity(MOE_ORACLE_T, ample) >= load,
+            f"{cfg.name}: the no-drop capacity is below the busiest load")
+    oracle = moe.moe_dense_oracle(xo, p, ample)
+    rel = rel_max(moe.moe_local(xo, p, ample), oracle)
+    with route_replaced(not_renormalised):
+        ctrl = rel_max(moe.moe_local(xo, p, ample), oracle)
+    require(rel <= MOE_REL_TOL,
+            f"{cfg.name}: moe_local without drops vs the oracle {rel} > "
+            f"{MOE_REL_TOL}")
+    require(ctrl > MOE_REL_TOL,
+            f"{cfg.name}: the not-renormalised control reads {ctrl}, not "
+            f"above {MOE_REL_TOL}")
+
+    timed = {}
+    for t in MOE_TIMED_T:
+        xt = x[:t]
+        ms = time_ms(lambda: moe.moe_local(xt, p, mcfg))
+        flops, nbytes = moe_work(t, mcfg, d)
+        bound_ms, bound_by = bound(flops, nbytes, peaks)
+        timed[t] = {"capacity": moe._capacity(t, mcfg), "ms": ms,
+                    "part_ms": moe_parts_ms(xt, p, mcfg),
+                    "gflop": flops / 1e9, "gbytes": nbytes / 1e9,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "share_of_bound": bound_ms / ms}
+    rec = {"dispatch": dispatch, "no_drop_rel_err_vs_oracle": rel,
+           "control_not_renormalised_rel_err": ctrl,
+           "rel_err_limit": MOE_REL_TOL, "oracle_tokens": MOE_ORACLE_T,
+           "timed": timed}
+    log(phase="moe", arch=cfg.name, **rec)
+    return rec
+
+
+def hidden_rel_err(h, ref, s: int) -> tuple[float, float]:
+    """Largest per-position relative L2 error (over D) of hidden states
+    (B, S, D) against ``ref``'s: (all positions, the late half)."""
+    e = (h.float() - ref.float()).norm(dim=-1) / ref.float().norm(dim=-1)
+    return float(e.max()), float(e[:, s // 2:].max())
+
+
+def forward_with_cache(model, params, batch):
+    """``Model.prefill``'s work, returning every position's hidden state:
+    (cache, hidden (B, S, D))."""
+    cache = model.init_cache(batch["tokens"].shape[0], CACHE_LEN,
+                             device=DEVICE)
+    hidden = model.forward(params, batch, cache=cache)
+    cache["pos"].fill_(batch["tokens"].shape[1])
+    return cache, hidden
+
+
+def routing_agreement(runs: list, ref: list, mcfg, t: int) -> dict:
+    """Per MoE layer, the share of (token, choice) pairs of ``runs``' routing
+    whose expert is among the same token's choices in ``ref``, and each
+    run's dropped assignments."""
+    cap = moe._capacity(t, mcfg)
+    drop = mcfg.n_experts * cap
+
+    def drops(ex):
+        return int((moe._dispatch_indices(ex, mcfg.n_experts, cap)
+                    == drop).sum())
+
+    return {"capacity": cap,
+            "agree_share": [float((a[:, :, None] == b[:, None, :]).any(-1)
+                                  .float().mean()) for a, b in zip(runs, ref)],
+            "dropped": [drops(a) for a in runs],
+            "dropped_ref": [drops(b) for b in ref]}
+
+
+def phase_moe_vlm_prefill(gen, cfg, model, params, info, fa_rec, ca_rec):
+    """4 x 2048 tokens (internvl2: the first 256 positions patch
+    embeddings drawn at the embedding table's scale): exactly n_layers
+    flash launches, and chunked ones on the chunked path. The kernel and
+    chunked paths against the plain prefill: last hidden state (relative
+    max-norm), every position's hidden state and every cached K/V row
+    (per-vector relative L2), each within ``PREFILL_REL_TOL`` /
+    ``KV_REL_TOL``. MoE models replay the plain prefill's routing on the
+    gated paths (``routing``); the unforced main run's agreement and drops
+    are logged. Controls: the causal mask one key ahead (and for internvl2
+    patches not spliced) must fail a gate."""
+    b, _, _, s, _ = MOE_VLM_ATTN[cfg.name]
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=DEVICE)
+    batch = {"tokens": tokens}
+    if cfg.kind == "vlm":
+        batch["patches"] = (torch.randn(
+            (b, cfg.n_patches, cfg.d_model), generator=gen, device=DEVICE)
+            / math.sqrt(cfg.d_model)).to(torch.bfloat16)
+    model.prefill(params, batch, CACHE_LEN)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    routes = {"main": [], "plain": []}
+    reset_launches()
+    t0 = time.perf_counter()
+    with routing(record=routes["main"]):
+        cache, last = model.prefill(params, batch, CACHE_LEN)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated()
+    launches = {"kernel": launch_counts()}
+    want = {"ssd_scan": 0, "flash_attention": cfg.n_layers,
+            "chunked_attention": 0}
+    require(launches["kernel"] == want,
+            f"{cfg.name} prefill launches {launches['kernel']}, want {want}")
+    require(last.shape == (b, cfg.d_model) and torch.isfinite(last).all(),
+            "last hidden state shape or finiteness")
+
+    plain = Model(dataclasses.replace(cfg, attn_impl="xla_flash"))
+    t0 = time.perf_counter()
+    with routing(record=routes["plain"]):
+        ref_cache, ref_hidden = forward_with_cache(plain, params, batch)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    replay = routes["plain"]
+    runs = {"main_unforced": (cache, last[:, None])}
+    with routing(replay=replay):
+        runs["kernel"] = forward_with_cache(model, params, batch)
+    chunked = Model(dataclasses.replace(cfg, attn_impl="chunked"))
+    reset_launches()
+    t0 = time.perf_counter()
+    with routing(replay=replay):
+        runs["chunked"] = forward_with_cache(chunked, params, batch)
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    launches["chunked"] = launch_counts()
+    want_c = dict(want, flash_attention=0, chunked_attention=cfg.n_layers)
+    require(launches["chunked"] == want_c,
+            f"{cfg.name} chunked prefill launches {launches['chunked']}, "
+            f"want {want_c}")
+    controls = ["control_mask_one_ahead"]
+    with routing(replay=replay), causal_mask_one_ahead():
+        runs["control_mask_one_ahead"] = forward_with_cache(plain, params,
+                                                            batch)
+    if cfg.kind == "vlm":
+        controls.append("control_patches_not_spliced")
+        runs["control_patches_not_spliced"] = forward_with_cache(
+            plain, params, {"tokens": tokens})
+    errs = {}
+    for name in list(runs):
+        run_cache, run_hidden = runs.pop(name)
+        kv, kv_late, worst = kv_rel_err(run_cache, ref_cache, s)
+        errs[name] = {"last": rel_max(run_hidden[:, -1], ref_hidden[:, -1]),
+                      "kv": kv, "kv_late_half": kv_late, "kv_worst": worst}
+        if name != "main_unforced":
+            errs[name]["hidden"], errs[name]["hidden_late_half"] = \
+                hidden_rel_err(run_hidden, ref_hidden, s)
+        del run_cache, run_hidden
+    del ref_cache, ref_hidden
+    for name in ("kernel", "chunked"):
+        e = errs[name]
+        require(e["last"] <= PREFILL_REL_TOL,
+                f"{cfg.name} {name} prefill: last hidden state {e['last']} "
+                f"> {PREFILL_REL_TOL}")
+        require(e["kv"] <= KV_REL_TOL,
+                f"{cfg.name} {name} prefill: K/V relative error {e['kv']} "
+                f"({e['kv_worst']}) > {KV_REL_TOL}")
+        require(e["hidden"] <= KV_REL_TOL,
+                f"{cfg.name} {name} prefill: hidden states {e['hidden']} > "
+                f"{KV_REL_TOL}")
+    # a control must fail a gate the sound paths pass. The MoE models have
+    # one attention layer before their last K/V (arctic) or none (kimi, whose
+    # K/V cannot see attention at all), so theirs is the hidden states over
+    # every position (a query among p keys moves by ~p^-1/2 when it sees one
+    # key more: the early positions show it); internvl2's 48 layers carry
+    # the mask control into the late half of the K/V, as phi3's do, and
+    # unspliced patches move every layer's K/V at the first 256 positions
+    for name in controls:
+        e = errs[name]
+        if cfg.kind == "moe":
+            seen = e["hidden"]
+        elif name == "control_mask_one_ahead":
+            seen = min(e["kv"], e["kv_late_half"])
+        else:
+            seen = e["kv"]
+        require(seen > KV_REL_TOL,
+                f"{cfg.name}: the {name} reads {e}, not above {KV_REL_TOL}: "
+                "the gates cannot see it")
+    extra = {}
+    if cfg.kind == "moe":
+        # the prefill's own routings drop assignments (phase_moe's random
+        # hidden states may not): their slots on the card equal the CPU's
+        cap = moe._capacity(b * s, cfg.moe)
+        require(all(torch.equal(
+            moe._dispatch_indices(r, cfg.moe.n_experts, cap).cpu(),
+            moe._dispatch_indices(r.cpu(), cfg.moe.n_experts, cap))
+            for r in routes["main"] + replay),
+            f"{cfg.name}: prefill dispatch slots on the card differ from "
+            "the CPU's")
+        extra["unforced_routing"] = routing_agreement(
+            routes["main"], replay, cfg.moe, b * s)
+    fa_rec["launches_by_path"][f"{cfg.name} prefill"] = \
+        launches["kernel"]["flash_attention"]
+    ca_rec["launches_by_path"][f"{cfg.name} chunked prefill"] = \
+        launches["chunked"]["chunked_attention"]
+    log(phase="prefill", arch=cfg.name, depth=info["depth"],
+        params=info["params"], init_s=info["init_s"], batch=b, prompt=s,
+        patches=cfg.n_patches if cfg.kind == "vlm" else 0,
+        cache_len=CACHE_LEN, prefill_s=prefill_s,
+        prefill_tokens_per_s=b * s / prefill_s, chunked_prefill_s=chunked_s,
+        plain_prefill_s=plain_s, launches=launches, err_vs_plain=errs,
+        rel_err_limit=PREFILL_REL_TOL, kv_rel_err_limit=KV_REL_TOL,
+        init_peak_mem_gb=info["init_peak_mem_gb"],
+        prefill_peak_mem_gb=prefill_peak / 1e9,
+        run_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **extra)
+    return cache, last, batch
+
+
+def phase_decode_kv(cfg, model, params, cache, last, tokens) -> None:
+    """``DECODE_STEPS`` steps from position 2048; then layer 0's K/V at
+    the decoded positions, which depend only on the tokens and their
+    positions (layer 0 lies before any MoE, so the capacity of 4 decode
+    tokens against 8256 prefill tokens cannot separate them), must equal a
+    fresh prefill's of the same 2064 tokens within ``KV_REL_TOL``. A
+    control reads each decoded row against the fresh prefill's next
+    position and must fail on K."""
+    s = tokens.shape[1]
+    toks = phase_decode(cfg, model, params, cache, last, s)
+    seen = torch.cat([tokens, toks[:, :DECODE_STEPS].to(tokens.dtype)],
+                     dim=1)
+    fresh, _ = model.prefill(params, {"tokens": seen}, CACHE_LEN)
+    n = s + DECODE_STEPS
+    errs = {}
+    for key in ("k", "v"):
+        a = cache[key][0, :, :n].float().flatten(2)
+        b = fresh[key][0, :, :n].float().flatten(2)
+        e = (a - b).norm(dim=-1) / b.norm(dim=-1)
+        nxt = b.roll(-1, dims=1)[:, s:n]
+        shifted = (a[:, s:n] - nxt).norm(dim=-1) / nxt.norm(dim=-1)
+        errs[key] = {"all_positions": float(e.max()),
+                     "decoded_positions": float(e[:, s:n].max()),
+                     "control_next_position": float(shifted.min())}
+    del fresh
+    for key, e in errs.items():
+        require(e["all_positions"] <= KV_REL_TOL,
+                f"{cfg.name} layer 0 {key} after decode vs a fresh prefill: "
+                f"{e['all_positions']} > {KV_REL_TOL}")
+    require(errs["k"]["control_next_position"] > KV_REL_TOL,
+            f"{cfg.name} layer 0 K: the next-position control reads "
+            f"{errs['k']['control_next_position']}, not above {KV_REL_TOL}")
+    log(phase="decode_kv", arch=cfg.name, positions=[s, n - 1],
+        layer0_rel_err_vs_fresh_prefill=errs, limit=KV_REL_TOL)
+
+
+def free_model(arch: str) -> None:
+    """Release what the last model left in the allocator's cache."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(phase="free", arch=arch,
+        after_gb=torch.cuda.memory_allocated() / 1e9)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1443,6 +1969,37 @@ def main() -> int:
     del cache
     phase_serve(gen, cfg, model, params, witness_layers=GEMMA_WITNESS_LAYERS)
     phase_profile(gen, cfg, model, params, GEMMA_ATTN[0], GEMMA_ATTN[3])
+    del cfg, model, params, last, tokens
+    free_model("gemma3-12b")
+
+    phase_moe_vlm_kernels(gen, peaks, fa_rec, ca_rec)
+    cfg, model, params, info = init_model("arctic-480b")
+    phase_moe(gen, cfg, params, peaks)
+    cache, last, batch = phase_moe_vlm_prefill(gen, cfg, model, params, info,
+                                               fa_rec, ca_rec)
+    phase_decode_kv(cfg, model, params, cache, last, batch["tokens"])
+    del cache, last, batch
+    phase_profile(gen, cfg, model, params, *MOE_VLM_ATTN[cfg.name][::3])
+    phase_serve(gen, cfg, model, params,
+                witness_layers=ARCTIC_WITNESS_LAYERS, in_place=True)
+    del cfg, model, params
+    free_model("arctic-480b")
+
+    cfg, model, params, info = init_model("kimi-k2-1t-a32b")
+    phase_moe(gen, cfg, params, peaks)
+    cache, last, batch = phase_moe_vlm_prefill(gen, cfg, model, params, info,
+                                               fa_rec, ca_rec)
+    phase_decode_kv(cfg, model, params, cache, last, batch["tokens"])
+    del cfg, model, params, cache, last, batch
+    free_model("kimi-k2-1t-a32b")
+
+    cfg, model, params, info = init_model("internvl2-26b")
+    cache, last, batch = phase_moe_vlm_prefill(gen, cfg, model, params, info,
+                                               fa_rec, ca_rec)
+    phase_decode(cfg, model, params, cache, last, MOE_VLM_ATTN[cfg.name][3])
+    del cache, last, batch
+    phase_serve(gen, cfg, model, params, witness_layers=VLM_WITNESS_LAYERS)
+    phase_profile(gen, cfg, model, params, *MOE_VLM_ATTN[cfg.name][::3])
 
     print(smi_name_power(), flush=True)
     print(json.dumps({"kernels": [fa_rec, ca_rec, ssd_rec]}), flush=True)

@@ -1,0 +1,139 @@
+"""Mixture-of-Experts FFN, counterpart of the no-mesh (``local``) path of
+``repro.models.moe``.
+
+Routing is top-k softmax (normalised over the k chosen experts) with a
+fixed per-expert capacity C = ceil(T·k/E · capacity_factor); an assignment
+whose rank among its expert's assignments, in (token, choice) order, is C
+or more is dropped (its combine weight meets a zero row), as in
+Switch/GShard. Tokens are scattered into (E, C, D) buffers, every expert's
+SwiGLU runs as one batched product (``torch.bmm``; the reference's
+``einsum``s run outside any kernel, so there is no hand-written kernel
+here), and the results are gathered back and weight-summed per token.
+
+Everything is computed on the device from static shapes: the capacity is a
+Python int of the token count, and there is no ``.item()``, no
+``nonzero`` and no branch on a device value, so a decode step through this
+layer can be captured as a CUDA graph.
+
+The reference's expert-parallel branches of ``moe_apply`` (``a2a``,
+``psum``, 2-D) need a mesh; they are ROADMAP Queue A item 12.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from repro_torch.models.config import MoEConfig
+
+
+def route(x2d: torch.Tensor, w_router: torch.Tensor, top_k: int):
+    """(weights (T, k) fp32, experts (T, k) int64): the top-k of the fp32
+    router logits, sorted in descending order, and the softmax over them.
+
+    ``torch.topk`` and ``jax.lax.top_k`` both sort descending; on equal
+    logits their order is not promised to agree. Seeded fp32 data has no
+    ties."""
+    logits = x2d.float() @ w_router.float()
+    gates, experts = torch.topk(logits, top_k, dim=-1)
+    return torch.softmax(gates, dim=-1), experts
+
+
+def _capacity(n_tokens: int, cfg: MoEConfig) -> int:
+    c = math.ceil(n_tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor)
+    return max(int(c), 1)
+
+
+def _dispatch_indices(experts: torch.Tensor, n_experts: int,
+                      capacity: int) -> torch.Tensor:
+    """Flat buffer slot (in [0, E*C); E*C = dropped) per (token, choice):
+    ``e * C + rank``, where ``rank`` is the assignment's rank within its
+    expert e in (token, choice) order: its place in a stable sort of the
+    flat choices by expert, less the place where e's run starts. These are
+    the integers of the reference's one-hot cumsum, without its (T·k, E)
+    temporary and the scan across it."""
+    t, k = experts.shape
+    flat_e = experts.reshape(-1)
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    starts = torch.searchsorted(sorted_e, torch.arange(
+        n_experts, device=flat_e.device, dtype=flat_e.dtype))
+    ranks = torch.empty_like(flat_e).scatter_(
+        0, order, torch.arange(t * k, device=flat_e.device,
+                               dtype=flat_e.dtype) - starts[sorted_e])
+    slot = torch.where(ranks < capacity, flat_e * capacity + ranks,
+                       n_experts * capacity)
+    return slot.reshape(t, k)
+
+
+def _expert_ffn(buf: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+    """buf (E, C, D) through each expert's SwiGLU: w_gate / w_up (E, D, F),
+    w_down (E, F, D)."""
+    h = F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
+    return torch.bmm(h, w_down)
+
+
+def _dispatch(x2d: torch.Tensor, slot: torch.Tensor, n_experts: int,
+              capacity: int) -> torch.Tensor:
+    """Scatter tokens (T, D) into buffers (E*C, D). Every dropped
+    assignment writes row E*C, which is cut off and never read (so its
+    duplicate writes do not matter)."""
+    d = x2d.shape[1]
+    k = slot.shape[1]
+    buf = x2d.new_zeros((n_experts * capacity + 1, d))
+    buf.index_copy_(0, slot.reshape(-1), x2d.repeat_interleave(k, dim=0))
+    return buf[:-1]
+
+
+def _combine(out_buf: torch.Tensor, slot: torch.Tensor,
+             weights: torch.Tensor, t: int, d: int) -> torch.Tensor:
+    """Gather the expert outputs (E*C, D) back per (token, choice), a
+    dropped one as a zero row, and weight-sum them per token with the
+    weights cast to the buffer's dtype."""
+    k = slot.shape[1]
+    padded = torch.cat([out_buf, out_buf.new_zeros((1, d))], dim=0)
+    per_choice = padded[slot.reshape(-1)].reshape(t, k, d)
+    return torch.einsum("tk,tkd->td", weights.to(per_choice.dtype),
+                        per_choice)
+
+
+def moe_local(x2d: torch.Tensor, params: dict, cfg: MoEConfig
+              ) -> torch.Tensor:
+    """x2d (T, D) -> (T, D) in its dtype. ``params``: ``router`` (D, E),
+    ``w_gate`` / ``w_up`` (E, D, F), ``w_down`` (E, F, D). Its three parts
+    are ``torch.profiler`` ranges (``moe/...``), which cost nothing
+    outside a trace."""
+    t, d = x2d.shape
+    with record_function("moe/route_dispatch"):
+        weights, experts = route(x2d, params["router"], cfg.top_k)
+        cap = _capacity(t, cfg)
+        slot = _dispatch_indices(experts, cfg.n_experts, cap)
+        buf = _dispatch(x2d, slot, cfg.n_experts, cap)
+    with record_function("moe/experts"):
+        out = _expert_ffn(buf.reshape(cfg.n_experts, cap, d),
+                          params["w_gate"], params["w_up"], params["w_down"])
+    with record_function("moe/combine"):
+        return _combine(out.reshape(-1, d), slot, weights, t,
+                        d).to(x2d.dtype)
+
+
+def moe_dense_oracle(x2d: torch.Tensor, params: dict, cfg: MoEConfig
+                     ) -> torch.Tensor:
+    """Capacity-free reference: every token through its top-k experts, one
+    expert at a time, accumulated in fp32."""
+    weights, experts = route(x2d, params["router"], cfg.top_k)
+    out = torch.zeros(x2d.shape, dtype=torch.float32, device=x2d.device)
+    for e in range(cfg.n_experts):
+        h = F.silu(x2d @ params["w_gate"][e]) * (x2d @ params["w_up"][e])
+        y = (h @ params["w_down"][e]).float()
+        w_e = torch.where(experts == e, weights, 0.0).sum(dim=-1)
+        out += w_e[:, None] * y
+    return out.to(x2d.dtype)
+
+
+def moe_apply(x: torch.Tensor, params: dict, cfg: MoEConfig) -> torch.Tensor:
+    """x (B, S, D): the reference's ``moe_apply`` without a mesh, which
+    runs :func:`moe_local` over the B·S tokens."""
+    b, s, d = x.shape
+    return moe_local(x.reshape(-1, d), params, cfg).reshape(b, s, d)

@@ -6,6 +6,11 @@
            sliding-window layers and one global layer, then a tail of
            ``n_layers % global_every`` windowed layers, each windowed
            layer decoding over a rolling cache of ``window`` slots;
+  moe    : the dense skeleton with a Mixture-of-Experts FFN in every layer
+           (``models/moe.py``), plus arctic's dense SwiGLU residual;
+  vlm    : the dense skeleton whose first ``n_patches`` positions are the
+           batch's precomputed ``patches`` embeddings (internvl2's vision
+           frontend is a stub in the reference too);
   ssm    : Mamba2 (SSD) stack;
   hybrid : zamba2 — Mamba2 superblocks of ``shared_attn_every`` layers,
            each followed by one *shared* attention + MLP block (one set of
@@ -15,8 +20,9 @@
 Parameters are a dict with the reference's leaf names and its stacked
 layouts (``params["layers"]["wq"]`` is (L, D, Hq*hd); windowed dense has
 ``local`` (n_super, global_every - 1, ...), ``global`` (n_super, ...) and
-``tail`` (n_tail, ...); hybrid has ``mamba`` (n_super, per, ...), ``tail``
-(n_tail, ...) and an unstacked ``shared_attn``), so
+``tail`` (n_tail, ...); moe's expert leaves are (L, E, ...); hybrid has
+``mamba`` (n_super, per, ...), ``tail`` (n_tail, ...) and an unstacked
+``shared_attn``), so
 ``repro_torch.convert.params_from_jax`` loads the reference's parameters
 as they are. The reference's ``lax.scan`` over
 layers is a Python loop over the stack dims. Its donated, functional
@@ -37,11 +43,17 @@ from repro_torch.models import embedloss
 from repro_torch.models.attention import context_attention, decode_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, rms_norm, rope_table, swiglu
+from repro_torch.models.moe import moe_apply
 from repro_torch.models.ssm import mamba_block
 
 Params = dict[str, Any]
 
-KINDS = ("dense", "ssm", "hybrid")
+KINDS = ("dense", "moe", "vlm", "ssm", "hybrid")
+# the families of one stack of attention + FFN layers (``layers``)
+DENSE_KINDS = ("dense", "moe", "vlm")
+# leaves with an expert dim after the stack dims: their fan-in is the next
+# dim (d or f), and they are drawn one (layer, expert) slice at a time
+EXPERT_LEAVES = ("moe_gate", "moe_up", "moe_down")
 SSD_IMPLS = ("kernel", "blocked")
 # stack dims of each layer group: dense/ssm "layers" (L,), windowed dense
 # "local" (n_super, global_every - 1) and "global" (n_super,), hybrid
@@ -55,8 +67,8 @@ def _dt(name: str) -> torch.dtype:
 
 
 class Model(nn.Module):
-    """The dense (with or without a sliding window), ssm and hybrid
-    families. Methods take the parameter dict explicitly, as the
+    """The dense (with or without a sliding window), moe, vlm, ssm and
+    hybrid families. Methods take the parameter dict explicitly, as the
     reference's do, so one model object serves several parameter sets (the
     tests hold the port against the reference this way)."""
 
@@ -68,7 +80,7 @@ class Model(nn.Module):
             raise NotImplementedError(
                 f"{cfg.name}: kind={cfg.kind!r}, window={cfg.window} is not "
                 f"ported yet; the port runs {KINDS}, a window on dense only "
-                "(ROADMAP Queue A item 7)")
+                "(ROADMAP Queue A item 7: encdec/audio, windowed moe/vlm)")
         if cfg.ssd_impl not in SSD_IMPLS:
             raise ValueError(f"unknown ssd_impl {cfg.ssd_impl!r}; expected "
                              f"one of {SSD_IMPLS}")
@@ -105,6 +117,22 @@ class Model(nn.Module):
                 "w_gate": stack + (d, f), "w_up": stack + (d, f),
                 "w_down": stack + (f, d)}
 
+    def _moe_shapes(self, stack: tuple) -> dict[str, tuple]:
+        """A MoE layer's leaves in the reference's order (``_moe_leaves``):
+        attention, ``ln_mlp``, the router, the experts' SwiGLU and, with
+        ``dense_residual``, the dense SwiGLU of width ``d_ff``."""
+        c = self.cfg
+        d, m = c.d_model, c.moe
+        e, f = m.n_experts, m.d_ff_expert
+        dense = self._attn_mlp_shapes(stack)
+        out = {k: dense[k] for k in ("ln_attn", "wq", "wk", "wv", "wo",
+                                     "ln_mlp")}
+        out.update(router=stack + (d, e), moe_gate=stack + (e, d, f),
+                   moe_up=stack + (e, d, f), moe_down=stack + (e, f, d))
+        if m.dense_residual:
+            out.update({k: dense[k] for k in ("w_gate", "w_up", "w_down")})
+        return out
+
     def _mamba_shapes(self, stack: tuple) -> dict[str, tuple]:
         c = self.cfg
         s, d = c.ssm, c.d_model
@@ -126,7 +154,9 @@ class Model(nn.Module):
             out["global"] = self._attn_mlp_shapes((self.n_super,))
             if self.n_tail:
                 out["tail"] = self._attn_mlp_shapes((self.n_tail,))
-        elif c.kind == "dense":
+        elif c.kind == "moe":
+            out["layers"] = self._moe_shapes((c.n_layers,))
+        elif c.kind in DENSE_KINDS:
             out["layers"] = self._attn_mlp_shapes((c.n_layers,))
         elif c.kind == "ssm":
             out["layers"] = self._mamba_shapes((c.n_layers,))
@@ -144,7 +174,10 @@ class Model(nn.Module):
         and the reference's constants for the SSM's ``dt_bias``, ``A_log``
         and ``D``. A stacked leaf is drawn one layer at a time in fp32 and
         copied into the preallocated leaf in ``param_dtype``, so the fp32
-        temporary is one layer's, not the stack's. The numbers differ from
+        temporary is one layer's, not the stack's; an expert leaf (L, E, ...)
+        is drawn one (layer, expert) slice at a time at the fan-in of the
+        dim after E (d, or f for ``moe_down``), as the reference's
+        ``in_axis=ns + 1``. The numbers differ from
         the reference's ``jax.random`` draws; the layout does not."""
         dev = resolve_device(device)
         dtype = _dt(self.cfg.param_dtype)
@@ -165,13 +198,14 @@ class Model(nn.Module):
                 r = torch.log(torch.expm1(r)) if name == "dt_bias" \
                     else torch.log(r)
                 return out.copy_(r.expand(shape))
-            std = 1.0 / math.sqrt(shape[n_stack if fan_in_axis is None
+            lead = n_stack + (name in EXPERT_LEAVES)
+            std = 1.0 / math.sqrt(shape[lead if fan_in_axis is None
                                         else fan_in_axis])
-            layers = out.view(-1, *shape[n_stack:])
-            for i in range(layers.shape[0]):
-                w = torch.randn(shape[n_stack:], generator=gen, device=dev,
+            slices = out.view(-1, *shape[lead:])
+            for i in range(slices.shape[0]):
+                w = torch.randn(shape[lead:], generator=gen, device=dev,
                                 dtype=torch.float32)
-                layers[i].copy_(w.mul_(std))
+                slices[i].copy_(w.mul_(std))
             return out
 
         params: Params = {}
@@ -198,8 +232,18 @@ class Model(nn.Module):
         return x + o.reshape(b, s, -1) @ p["wo"], (k, v)
 
     def _ffn(self, p, x):
-        h = rms_norm(x, p["ln_mlp"], self.cfg.norm_eps)
-        return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+        """The FFN block: SwiGLU, or in a MoE layer the experts (plus the
+        dense SwiGLU of the same normed input with ``dense_residual``)."""
+        c = self.cfg
+        h = rms_norm(x, p["ln_mlp"], c.norm_eps)
+        if "router" not in p:
+            return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+        y = moe_apply(h, {"router": p["router"], "w_gate": p["moe_gate"],
+                          "w_up": p["moe_up"], "w_down": p["moe_down"]},
+                      c.moe)
+        if c.moe.dense_residual:
+            y = y + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+        return x + y
 
     @staticmethod
     def _index(tree: Params, *idx) -> dict[str, torch.Tensor]:
@@ -233,7 +277,7 @@ class Model(nn.Module):
             for t in range(self.n_tail):
                 yield ("attn", self._index(params["tail"], t),
                        views(("k_tail", t), ("v_tail", t)), c.window, True)
-        elif c.kind == "dense":
+        elif c.kind in DENSE_KINDS:
             for i in range(c.n_layers):
                 yield ("attn", self._index(params["layers"], i),
                        views(("k", i), ("v", i)), 0, False)
@@ -263,10 +307,17 @@ class Model(nn.Module):
         slots the last min(S, w) positions, position p at slot p % w (the
         reference's ``place_rolling``); Mamba2 conv inputs and final SSM
         states into their leaves. The counterpart of the reference's
-        ``collect=True``, which returns them stacked."""
+        ``collect=True``, which returns them stacked.
+
+        A vlm batch may carry ``patches`` (B, P, D): they replace the first
+        P positions' token embeddings, in the compute dtype, before the
+        layers (RoPE positions are unchanged)."""
         c = self.cfg
         tokens = batch["tokens"]
         x = embedloss.embed_in(params["embed"], tokens, _dt(c.compute_dtype))
+        if c.kind == "vlm" and "patches" in batch:
+            patches = batch["patches"].to(x.dtype)
+            x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
         s = x.shape[1]
         sin, cos = rope_table(torch.arange(s, device=x.device), c.hd,
                               c.rope_theta)
@@ -320,7 +371,7 @@ class Model(nn.Module):
                 cache["k_tail"] = zeros(kv(self.n_tail, w))
                 cache["v_tail"] = zeros(kv(self.n_tail, w))
             return cache
-        if c.kind == "dense":
+        if c.kind in DENSE_KINDS:
             cache["k"] = zeros(kv(c.n_layers))
             cache["v"] = zeros(kv(c.n_layers))
             return cache
@@ -356,7 +407,7 @@ class Model(nn.Module):
             if self.n_tail:
                 ax["k_tail"] = kv
                 ax["v_tail"] = kv
-        elif c.kind == "dense":
+        elif c.kind in DENSE_KINDS:
             ax["k"] = kv
             ax["v"] = kv
         elif c.kind == "ssm":
@@ -442,7 +493,8 @@ class Model(nn.Module):
     # -------------------------------------------------------------- prefill
     def prefill(self, params: Params, batch: dict, cache_len: int):
         """Full-sequence forward that fills a fresh decode cache in place,
-        layer by layer. Returns (cache, last_hidden (B, D))."""
+        layer by layer (the batch as :meth:`forward` takes it, a vlm's
+        ``patches`` included). Returns (cache, last_hidden (B, D))."""
         tokens = batch["tokens"]
         b, s = tokens.shape
         cache = self.init_cache(b, cache_len, device=tokens.device)

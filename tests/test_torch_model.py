@@ -29,6 +29,8 @@ ARCHS = ["phi3-medium-14b", "stablelm-3b"]
 SSM_ARCHS = ["mamba2-1.3b", "zamba2-7b"]
 # the sliding-window dense family (tests/test_torch_windowed.py)
 WINDOWED_ARCHS = ["gemma3-1b", "gemma3-12b"]
+# the moe and vlm families (tests/test_torch_moe_model.py)
+MOE_VLM_ARCHS = ["arctic-480b", "internvl2-26b", "kimi-k2-1t-a32b"]
 B, S = 2, 17
 TOL = 1e-5
 
@@ -58,8 +60,9 @@ def _value(v):
 
 
 def test_registry_and_config_copy():
-    assert list_archs() == sorted(ARCHS + SSM_ARCHS + WINDOWED_ARCHS)
-    for arch in ARCHS + SSM_ARCHS + WINDOWED_ARCHS:
+    ported = ARCHS + SSM_ARCHS + WINDOWED_ARCHS + MOE_VLM_ARCHS
+    assert list_archs() == sorted(ported)
+    for arch in ported:
         for ours, ref in ((get_smoke_config(arch), jax_smoke(arch)),
                           (get_config(arch), jax_config(arch))):
             ref_fields = {f.name for f in dataclasses.fields(ref)}
@@ -195,8 +198,7 @@ def test_bf16_config_runs_in_bf16():
 
 
 @pytest.mark.parametrize("kw", [dict(kind="encdec", n_enc_layers=1),
-                                dict(kind="vlm"),
-                                dict(kind="moe")])
+                                dict(kind="audio", n_enc_layers=1)])
 def test_unported_families_raise(kw):
     cfg = ModelConfig(name="x", n_layers=1, d_model=64, n_heads=4,
                       n_kv_heads=2, d_ff=64, vocab=128, **kw)
