@@ -38,6 +38,20 @@ Phases, each printing one JSON line:
             1 and by 4 slots (see ``phase_serve``).
   profile : a torch.profiler trace of one prefill and four decode steps:
             device busy time, idle share, top kernels.
+  governed_serve : the SLO-governed serving scenario of
+            ``examples/serve_pipeline.py`` on phi3 (4 slots, a bursty
+            trace of 16 requests on the engine's sim clock, a governor
+            re-planning off the DVB-S2 ``mac`` (period, energy) frontier,
+            deadline-safe admission), its governed and max-performance
+            arms. Each must miss no deadline, the governed arm complete
+            every request with at least one "slo" re-plan and fewer
+            joules per token (modelled: the ``mac`` power model's watts
+            times the planned step time, not the card's energy); every
+            decision (windows, governor events, admissions, finishes)
+            must equal a replay of the same scenario on the CPU with the
+            stablelm-3b smoke model; request 0's tokens must equal its
+            4-slot solo run's. Logs the card's wall ms per engine step
+            beside the plan's simulated step.
 Then phi3's 28 GB are freed and zamba2-7b (Mamba2 + shared attention) runs:
   attention_kernels : the chunked two-pass kernel against
             ``attention_kernel_ref`` on the six reference cases and the
@@ -153,6 +167,9 @@ import torch.nn.functional as F  # noqa: E402
 
 from torch.utils import cpp_extension  # noqa: E402
 
+from repro_torch.configs.dvbs2 import serving_preset  # noqa: E402
+from repro_torch.control import (  # noqa: E402
+    Governor, bursty_arrivals, run_serve_scenario)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import chunked as ca  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
@@ -160,9 +177,11 @@ from repro_torch.kernels.flash_attention.ref import attention_kernel_ref  # noqa
 from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_ref_sequential  # noqa: E402
 from repro_torch.models import attention, embedloss, moe, ssm, transformer  # noqa: E402
-from repro_torch.models.config import get_config  # noqa: E402
+from repro_torch.models.config import get_config, get_smoke_config  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
-from repro_torch.serve import Request, ServeEngine  # noqa: E402
+from repro_torch.obs import MetricsRegistry, Tracer  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    AdmissionPlanner, Request, ServeEngine, SimClock)
 
 # b, hq, hkv, sq, skv, d, causal, window (tests/test_kernels.py FLASH_CASES;
 # its Pallas block sizes do not apply to this kernel)
@@ -303,6 +322,15 @@ MOE_TIMED_T = (8192, 4)
 # place of the bf16 weights); internvl2's first 4 of 48 layers (8.5 GB)
 ARCTIC_WITNESS_LAYERS = 1
 VLM_WITNESS_LAYERS = 4
+# the governed-serving scenario, with the constants of
+# examples/serve_pipeline.py, and the smoke model of its CPU replay
+GOV_PLATFORM = "mac"
+GOV_TIME_SCALE = 2e-6            # engine seconds per chain µs
+GOV_SAFETY = 1.5                 # admission derate, > the 1.3x inflation
+GOV_WINDOWS = 10
+GOV_INFLATION_AT = ((6, 1.3),)   # steps run 1.3x slower from window 6 on
+GOV_NEW_TOKENS = 8               # bursty_arrivals' max_new_tokens
+GOV_REPLAY_ARCH = "stablelm-3b"
 SEED = 0
 DEVICE = "cuda"
 
@@ -693,9 +721,10 @@ def phase_decode(cfg, model, params, cache, last, prompt: int):
     return toks
 
 
-def solo_tokens(model, params, prompt, slots: int) -> list[int]:
+def solo_tokens(model, params, prompt, slots: int,
+                max_len: int = 128) -> list[int]:
     """Request 0 served alone by an engine of ``slots`` slots, in slot 0."""
-    solo = ServeEngine(model, params, batch_slots=slots, max_len=128)
+    solo = ServeEngine(model, params, batch_slots=slots, max_len=max_len)
     alone = Request(rid=0, prompt=prompt, max_new_tokens=16)
     solo.submit(alone)
     solo.step()
@@ -873,6 +902,137 @@ def phase_profile(gen, cfg, model, params, b: int, s: int) -> None:
                                for _ in range(4)])
     log(phase="profile", arch=cfg.name, prefill=prefill,
         decode_4_steps=decode)
+
+
+def governed_arm(model, params, governed: bool, tracer=None):
+    """One arm of ``examples/serve_pipeline.py``'s scenario: a 4-slot
+    engine on a sim clock with deadline-safe admission over the governor's
+    frontier, paced by the governor (``governed``) or pinned at
+    max-performance."""
+    preset = serving_preset(GOV_PLATFORM)
+    gov = Governor(preset["chain"], preset["b"], preset["l"],
+                   preset["power"], preset["budget"],
+                   slo_period=preset["slo_period"], upshift_margin=0.02)
+    planner = AdmissionPlanner(frontier=gov.frontier(),
+                               time_scale=GOV_TIME_SCALE,
+                               cap_w=preset["cap_w"], safety=GOV_SAFETY)
+    engine = ServeEngine(model, params, batch_slots=4, max_len=64,
+                         clock=SimClock(), planner=planner, pace="fixed",
+                         tracer=tracer, metrics=MetricsRegistry())
+    arrivals = bursty_arrivals(GOV_WINDOWS, base_rate=1, burst_rate=4,
+                               burst_windows=(3, 4), latency_slo_s=0.5)
+    res = run_serve_scenario(
+        gov, engine, arrivals, time_scale=GOV_TIME_SCALE,
+        n_windows=GOV_WINDOWS, window_dt=1.0, inflation_at=GOV_INFLATION_AT,
+        governed=governed, metrics=engine.metrics)
+    return preset, arrivals, engine, res
+
+
+def decisions(res) -> tuple:
+    """Everything the scenario decided, none of it the model's tokens:
+    each window record, each governor event (trigger, time, the adopted
+    plan's period and watts), each request's admission and outcome, and
+    the totals. NaN stands as the string "nan", so that it equals
+    itself."""
+    def num(x):
+        return "nan" if isinstance(x, float) and x != x else x
+
+    def event(e):
+        return (e.trigger, e.t, e.plan.predicted_period,
+                e.plan.predicted_watts)
+
+    windows = tuple(
+        tuple(tuple(event(e) for e in w.events) if f.name == "events"
+              else num(getattr(w, f.name)) for f in dataclasses.fields(w))
+        for w in res.windows)
+    requests = tuple((r.rid, r.rejected, r.admitted_s, r.finished_s,
+                      r.missed) for r in res.requests)
+    return (windows, tuple(event(e) for e in res.events), requests,
+            res.completed, res.rejected, res.deadline_misses, res.tokens,
+            res.joules)
+
+
+def phase_governed_serve(cfg, model, params) -> None:
+    """The SLO-governed serving scenario on the model already on the card
+    (phi3 at full width and depth, bf16), both arms. The engine's clock is
+    simulated (each step advances it by the planned step time), so every
+    admission and re-plan is independent of the model and the device: the
+    card's decisions must equal a CPU replay's with the stablelm-3b smoke
+    model, asked for with ``device="cpu"``. The joules are modelled (the
+    DVB-S2 ``mac`` power model's watts times the simulated step time), not
+    measured on the card. Draws nothing from the run's generators."""
+    replay = Model(get_smoke_config(GOV_REPLAY_ARCH))
+    replay_params = replay.init(SEED, device="cpu")
+    reset_launches()
+    out = {}
+    for governed in (True, False):
+        arm = "governed" if governed else "max_perf"
+        tracer = Tracer()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preset, arrivals, engine, res = governed_arm(model, params, governed,
+                                                     tracer)
+        wall = time.perf_counter() - t0
+        ref = governed_arm(replay, replay_params, governed)[3]
+        require(decisions(res) == decisions(ref),
+                f"governed serve ({arm}): the card's decisions differ from "
+                f"the CPU replay's")
+        require(res.deadline_misses == 0,
+                f"governed serve ({arm}): {res.deadline_misses} deadline "
+                f"misses")
+        for r in res.requests:
+            if not r.rejected:
+                require(len(r.out) == GOV_NEW_TOKENS
+                        and all(0 <= t < cfg.vocab for t in r.out),
+                        f"governed serve ({arm}): request {r.rid} has "
+                        f"tokens {r.out}")
+        walls = sorted(e.dur * 1e3 for e in tracer.drain()
+                       if e.ph == "X" and e.name == "serve/step")
+        planned = engine.metrics.snapshot()["histograms"]["serve/step_s"]
+        log(phase="governed_serve", arch=cfg.name, arm=arm,
+            engine_steps=len(walls),
+            wall_ms_per_step_p50=statistics.median(walls),
+            wall_ms_per_step_p99=walls[max(0, math.ceil(0.99 * len(walls))
+                                           - 1)],
+            planned_ms_per_step_p50=planned["p50"] * 1e3,
+            planned_ms_per_step_p99=planned["p99"] * 1e3,
+            wall_s=wall, requests=len(res.requests),
+            completed=res.completed, rejected=res.rejected,
+            deadline_misses=res.deadline_misses, tokens=res.tokens,
+            replans=[e.trigger for e in res.replans],
+            modelled_joules=res.joules,
+            modelled_joules_per_token=res.joules_per_token,
+            joules_model=f"DVB-S2 {GOV_PLATFORM} power model "
+                         f"(energy/model.py), not measured on the card",
+            frontier_points=len(preset["frontier"]),
+            slo_ms_per_step=preset["slo_period"] * GOV_TIME_SCALE * 1e3,
+            cap_w_modelled=preset["cap_w"],
+            decisions_equal_cpu_replay=True, replay_arch=GOV_REPLAY_ARCH)
+        out[arm] = res
+    gov, maxp = out["governed"], out["max_perf"]
+    require(gov.completed == len(arrivals),
+            f"governed serve: {gov.completed} of {len(arrivals)} requests "
+            f"completed")
+    require(any(e.trigger == "slo" for e in gov.replans),
+            "governed serve: no \"slo\" re-plan")
+    require(gov.joules_per_token < maxp.joules_per_token,
+            f"governed serve: {gov.joules_per_token} modelled J/token, not "
+            f"below max-perf's {maxp.joules_per_token}")
+    first = gov.requests[0]
+    require(first.admitted_s is not None and first.admitted_s
+            < min(r.admitted_s for r in gov.requests[1:]
+                  if r.admitted_s is not None),
+            "governed serve: request 0 was not admitted first")
+    solo = solo_tokens(model, params, first.prompt, 4, max_len=64)
+    for arm, res in out.items():
+        require(res.requests[0].out == solo[:GOV_NEW_TOKENS],
+                f"governed serve ({arm}): request 0's tokens differ from "
+                f"its 4-slot solo run from token "
+                f"{first_diff(solo, res.requests[0].out)}")
+    log(phase="governed_serve", arch=cfg.name, launches=launch_counts(),
+        modelled_joules_per_token_saved=1 - gov.joules_per_token
+        / maxp.joules_per_token,
+        first_request_equals_solo=True, solo_slots=4)
 
 
 # ================================================================ zamba2-7b
@@ -1940,6 +2100,7 @@ def main() -> int:
     del cache
     phase_serve(gen, cfg, model, params, witness_layers=PHI3_WITNESS_LAYERS)
     phase_profile(gen, cfg, model, params, PHI3_ATTN[0], PHI3_ATTN[3])
+    phase_governed_serve(cfg, model, params)
     held = torch.cuda.memory_allocated()
     del cfg, model, params, last
     gc.collect()

@@ -16,9 +16,12 @@ the port's callables):
                                  (``ssd_scan/ref.py``)
 
 ``variant_names(family)`` is the selectable set (base first);
-``implementation(family, name)`` the callable. ``register_family``, the
-bridge into the scheduler's variant registry, needs ``core.variants``,
-which the port has not carried across yet.
+``implementation(family, name)`` the callable. ``register_family``
+bridges a family into a :class:`repro_torch.core.variants.VariantRegistry`
+under a task name: the caller supplies measured per-core-type weight
+multipliers (this module never assumes them), and the catalog contributes
+the port's callable, so a plan that selects the variant can instantiate
+it.
 """
 from __future__ import annotations
 
@@ -65,9 +68,19 @@ def implementation(family: str, name: str) -> Callable:
 
 def register_family(registry, task: str, family: str,
                     multipliers: Mapping[str, tuple[float, float]]) -> list:
-    """Register ``family``'s measured non-base variants for ``task`` in a
-    scheduler variant registry. Not available yet: it needs the port's
-    ``core.variants`` (ROADMAP Queue A item 9)."""
-    raise NotImplementedError(
-        "register_family needs core.variants, not ported yet (ROADMAP "
-        "Queue A item 9)")
+    """Register ``family``'s non-base variants for ``task``.
+
+    ``multipliers`` maps variant name -> measured (big, little) weight
+    multipliers (pass only the variants you measured to register a
+    subset). Returns the :class:`repro_torch.core.variants.TaskVariant`
+    registrations.
+    """
+    out = []
+    for name, (big, little) in multipliers.items():
+        fn = implementation(family, name)  # validates family/name
+        if name == "base":
+            raise ValueError("the base implementation is the task itself; "
+                             "register only non-base variants")
+        out.append(registry.register(task, name, big=big, little=little,
+                                     fn=fn))
+    return out

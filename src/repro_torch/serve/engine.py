@@ -11,14 +11,24 @@ stream in token by token through the same ``decode_step``
 arrival queue every step. Greedy sampling. The cache is updated in place
 (the reference donates it to a jitted step).
 
-Deadlines: a request may carry ``deadline_s``; a queued request that can
-no longer finish by it at the engine's step time is rejected. The
-reference's deadline-safe admission planner (``planner=``) needs the
-energy stack, which the port has not carried across yet: passing one
-raises.
+Deadline-safe admission (optional): give the engine an
+:class:`~repro_torch.serve.slo.AdmissionPlanner` and per-request
+``deadline_s`` values, and each admission queries the (period, energy)
+frontier for the minimum-energy configuration whose step latency meets
+every admitted deadline under the current power cap, falling back to
+max-performance when that is infeasible and rejecting a request outright
+when even max-performance would miss. The selected point lands on
+``plan_point``. With ``pace="planner"`` and a :class:`SimClock` the
+engine paces its own step time from it; with ``pace="fixed"`` an outer
+loop (``repro_torch.control.sim.run_serve_scenario``) owns
+``step_time_s``, and admission also checks the current pace, so a
+mid-window arrival is never admitted into a miss. Without a planner, a
+queued request that can no longer finish by its deadline at the engine's
+step time is rejected.
 
 Clocks: the wall clock by default; with a :class:`SimClock` every step
-advances it by ``step_time_s`` exactly.
+advances it by the planned step time exactly, so every admission decision
+is independent of the model and of the device.
 
 Observability (optional, duck-typed): a ``tracer`` with ``enabled``,
 ``complete``, ``counter`` and ``instant``, and a ``metrics`` registry with
@@ -38,16 +48,7 @@ import torch
 
 from repro_torch.models.transformer import Model
 
-
-def step_need_s(deadline_s: float, now_s: float, steps_remaining: int,
-                safety: float = 1.0) -> float:
-    """The slowest admissible per-step latency (seconds) for a request
-    needing ``steps_remaining`` more engine steps by ``deadline_s``,
-    derated by ``safety``. Non-positive when the deadline already
-    passed."""
-    if steps_remaining <= 0:
-        return math.inf
-    return (deadline_s - now_s) / (steps_remaining * safety)
+from .slo import AdmissionPlanner, step_need_s
 
 
 @dataclasses.dataclass
@@ -88,12 +89,12 @@ class SimClock:
 class ServeEngine:
     def __init__(self, model: Model, params, batch_slots: int = 4,
                  max_len: int = 256, tracer=None, metrics=None,
-                 clock: SimClock | None = None, planner=None,
+                 clock: SimClock | None = None,
+                 planner: AdmissionPlanner | None = None,
+                 pace: str = "planner",
                  step_time_s: float | None = None):
-        if planner is not None:
-            raise NotImplementedError(
-                "deadline-safe admission (planner=) needs the energy stack, "
-                "not ported yet (ROADMAP Queue A item 9)")
+        if pace not in ("planner", "fixed"):
+            raise ValueError(f"unknown pace {pace!r}")
         self.model = model
         self.params = params
         self.device = params["embed"].device
@@ -102,8 +103,14 @@ class ServeEngine:
         self.tracer = tracer
         self.metrics = metrics
         self.clock = clock
-        self.step_time_s = step_time_s  # sim-clock seconds per step
+        self.planner = planner
+        self.pace = pace
+        # sim-clock seconds per step; under pace="planner" it follows the
+        # admission plan, under pace="fixed" the outer loop sets it
+        self.step_time_s = step_time_s
         self.last_step_s = 0.0
+        self.plan_point = None          # the planner's latest selection
+        self.plan_feasible = True       # False: running the fallback
         self.cache = model.init_cache(batch_slots, max_len,
                                       device=self.device)
         self.queue: deque[Request] = deque()
@@ -118,7 +125,12 @@ class ServeEngine:
             else time.perf_counter()
 
     def _planned_step_s(self) -> float:
-        return self.step_time_s if self.step_time_s is not None else 0.0
+        if self.pace == "planner" and self.planner is not None \
+                and self.plan_point is not None:
+            return self.planner.step_s(self.plan_point)
+        if self.step_time_s is not None:
+            return self.step_time_s
+        return 0.0
 
     # ------------------------------------------------------------ admission
     def submit(self, req: Request) -> None:
@@ -133,14 +145,29 @@ class ServeEngine:
         # the step that consumes the last prompt token also emits
         return pend + emit_left - (1 if pend else 0)
 
+    def _needs(self, now: float, extra: Request | None = None
+               ) -> list[float]:
+        """Per-step latency budgets (s) of every admitted deadline (plus
+        an unadmitted candidate), derated by the planner's safety."""
+        safety = self.planner.safety if self.planner is not None else 1.0
+        needs = []
+        for i, req in enumerate(self.slots):
+            if req is not None and req.deadline_s is not None:
+                needs.append(step_need_s(req.deadline_s, now,
+                                         self._steps_remaining(i), safety))
+        if extra is not None and extra.deadline_s is not None:
+            needs.append(step_need_s(extra.deadline_s, now,
+                                     extra.total_steps, safety))
+        return needs
+
     def min_step_need_s(self) -> float:
         """The tightest admissible step latency over every admitted and
-        queued deadline."""
+        queued deadline: what the serving scenario feeds the governor as
+        ``Observation.need_period``."""
         now = self.now()
-        needs = [step_need_s(req.deadline_s, now, self._steps_remaining(i))
-                 for i, req in enumerate(self.slots)
-                 if req is not None and req.deadline_s is not None]
-        needs += [step_need_s(req.deadline_s, now, req.total_steps)
+        safety = self.planner.safety if self.planner is not None else 1.0
+        needs = self._needs(now)
+        needs += [step_need_s(req.deadline_s, now, req.total_steps, safety)
                   for req in self.queue if req.deadline_s is not None]
         return min(needs) if needs else math.inf
 
@@ -154,27 +181,64 @@ class ServeEngine:
             self.tracer.instant("serve/rejected", cat="serve",
                                 args={"rid": req.rid})
 
+    def _admissible(self, req: Request, now: float) -> bool:
+        """Deadline-safe admission check for one queued candidate."""
+        if self.planner is None or req.deadline_s is None:
+            return True
+        point, feasible = self.planner.plan_admission(
+            self._needs(now, extra=req))
+        if point is None:
+            return False
+        if self.pace == "fixed" and self.step_time_s is not None:
+            # an outer loop owns the pace until its next re-plan: only
+            # admit what the current step time also satisfies
+            safety = self.planner.safety
+            if step_need_s(req.deadline_s, now, req.total_steps,
+                           safety) < self.step_time_s * (1 - 1e-9):
+                return False
+        self.plan_point = point
+        self.plan_feasible = feasible
+        return True
+
     def _expired(self, req: Request, now: float) -> bool:
-        """A queued request that can no longer finish by its deadline at
-        the engine's step time."""
+        """A queued request no serving configuration can admit anymore.
+        With a planner this mirrors the admission fallback exactly (same
+        safety derate, same epsilon), so a queued request is either
+        admitted or expires, never starves in between."""
         if req.deadline_s is None:
             return False
+        if self.planner is not None:
+            best = self.planner.step_s(self.planner.max_perf())
+            need = step_need_s(req.deadline_s, now, req.total_steps,
+                               self.planner.safety)
+            return best > need * (1 + 1e-9)
         best = self._planned_step_s()
         return now + req.total_steps * best > req.deadline_s + 1e-12
 
     def _admit(self) -> None:
         now = self.now()
         free = [i for i, s in enumerate(self.slots) if s is None]
+        if not free:
+            return
+        # FIFO scan with skip: a head whose deadline needs a faster plan
+        # than the current mix allows stays queued (until feasible or
+        # expired) without starving later requests that fit
+        kept: deque[Request] = deque()
         while self.queue and free:
             req = self.queue.popleft()
             if self._expired(req, now):
                 self._reject(req)
+                continue
+            if not self._admissible(req, now):
+                kept.append(req)
                 continue
             i = free.pop(0)
             self.model.reset_cache_lane(self.cache, i)
             self.slots[i] = req
             self._pending[i] = list(req.prompt)
             req.admitted_s = now
+        kept.extend(self.queue)
+        self.queue = kept
 
     # ----------------------------------------------------------------- step
     def step(self) -> None:

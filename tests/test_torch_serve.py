@@ -96,10 +96,48 @@ def test_slot_reuse_resets_lane(models):
 
 
 def test_planner_raises():
-    tm = Model(get_smoke_config("stablelm-3b"))
-    tp = tm.init(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        ServeEngine(tm, tp, planner=object())
+    """``ServeEngine(planner=...)`` admits and paces as the reference
+    engine does (the same rejections, admission and finish times, tokens
+    and plan point on the sim clock), and an unknown ``pace`` raises the
+    reference's ValueError."""
+    from repro.configs.dvbs2 import serving_preset as jax_preset
+    from repro.serve import AdmissionPlanner as JaxPlanner
+    from repro_torch.configs.dvbs2 import serving_preset
+    from repro_torch.serve import AdmissionPlanner
+
+    jm = JaxModel(jax_smoke("stablelm-3b"))
+    jp = jm.init(0)
+    cfg = get_smoke_config("stablelm-3b")
+    tm = Model(cfg)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    with pytest.raises(ValueError, match="pace"):
+        ServeEngine(tm, tp, pace="bogus")
+
+    def run(engine_cls, req_cls, clock_cls, planner_cls, preset, model,
+            params):
+        planner = planner_cls(frontier=preset["frontier"], time_scale=2e-4,
+                              cap_w=preset["cap_w"], safety=1.5)
+        engine = engine_cls(model, params, batch_slots=2, max_len=64,
+                            clock=clock_cls(), planner=planner)
+        reqs = [req_cls(rid=i, prompt=[1 + i, 2 + i], max_new_tokens=3,
+                        deadline_s=d, arrival_s=0.0)
+                for i, d in enumerate((30.0, 2.0, 6.0, 0.5, 60.0))]
+        for r in reqs:
+            engine.submit(r)
+        engine.run_until_idle()
+        return [(r.out, r.rejected, r.missed, r.admitted_s, r.finished_s)
+                for r in reqs], (engine.plan_point.period,
+                                 engine.plan_point.energy,
+                                 engine.plan_feasible, engine.clock.now())
+
+    got = run(ServeEngine, Request, SimClock, AdmissionPlanner,
+              serving_preset("mac"), tm, tp)
+    want = run(JaxEngine, JaxRequest, JaxClock, JaxPlanner,
+               jax_preset("mac"), jm, jp)
+    assert got == want
+    outcomes = got[0]
+    assert any(o[1] for o in outcomes) and not all(o[1] for o in outcomes)
+    assert not any(o[2] for o in outcomes)
 
 
 def test_deadlines_on_sim_clock_match_reference(models):

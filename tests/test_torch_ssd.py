@@ -257,7 +257,8 @@ def test_ssd_kernel_wrapper_with_state_matches_jax(case):
 def test_kernel_registry_catalog():
     """The port's catalog has the reference's families and variant names
     in the reference's order, the port's callables, the reference's
-    KeyErrors, and a register_family that says what it is waiting for."""
+    KeyErrors, and a register_family that registers the reference's variant
+    names and multipliers with the port's callables."""
     for family in ("flash_attention", "ssd_scan"):
         names = registry.variant_names(family)
         assert names == jregistry.variant_names(family)
@@ -275,9 +276,24 @@ def test_kernel_registry_catalog():
         registry.variant_names("conv")
     with pytest.raises(KeyError):
         registry.implementation("flash_attention", "nope")
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        registry.register_family(object(), "Attn.apply", "flash_attention",
-                                 {"chunked": (1.3, 0.82)})
+    from repro.core.variants import VariantRegistry as JaxRegistry
+    from repro_torch.core.variants import VariantRegistry
+    mult = {"chunked": (1.3, 0.82), "xla": (1.1, 0.9)}
+    ours, ref = VariantRegistry(), JaxRegistry()
+    got = registry.register_family(ours, "Attn.apply", "flash_attention",
+                                   mult)
+    want = jregistry.register_family(ref, "Attn.apply", "flash_attention",
+                                     mult)
+    assert [(v.task, v.name, v.mult_big, v.mult_little) for v in got] == \
+        [(v.task, v.name, v.mult_big, v.mult_little) for v in want]
+    assert [v.fn for v in got] == [chunked_attention_cuda, flash_attention_xla]
+    assert ours.names == ref.names == ("base", "chunked", "xla")
+    with pytest.raises(ValueError, match="base"):
+        registry.register_family(ours, "Attn.apply", "flash_attention",
+                                 {"base": (1.0, 1.0)})
+    with pytest.raises(KeyError):
+        registry.register_family(ours, "Attn.apply", "ssd_scan",
+                                 {"chunked": (1.0, 1.0)})
 
 
 def test_kernel_check_args():
