@@ -140,6 +140,30 @@ gated as arctic's. Then internvl2-26b at full width and depth: prefill of
 flash (or chunked) launches, phi3's gates, the mask-one-ahead control and
 a control whose patches are not spliced; decode, serve (fp32 witness of
 its first 4 layers), profile.
+Then internvl2's 38.6 GB are freed and whisper-small (encoder-decoder)
+runs at full width and depth:
+  whisper_kernels : both attention kernels against
+            ``attention_kernel_ref`` on a non-causal case of 1500 keys
+            (a ragged last tile of 28) and at whisper's three prefill
+            shapes, fp32 (2e-5) and bf16 (2e-2): the encoder's non-causal
+            (16, 12, 1500, 1500, 64), the decoder's causal (16, 12, 224,
+            224, 64) and the cross-attention (16, 12, 224 queries, 1500
+            keys, 64); kernel times in both dtypes, and in bf16 plain and
+            library times, the bound of the pairs the mask shows.
+  prefill : 16 clips of 1500 frames and a 224-token prompt each into a
+            448-position cache: exactly 36 flash launches (12 encoder, 12
+            decoder self, 12 cross), or 36 chunked ones on the chunked
+            path; both paths' last hidden state and every cached K/V row
+            (self over the prompt, cross over all 1500 frames) against the
+            plain prefill, as phi3's; a control whose encoder attention is
+            causal must fail the gate on ``k_cross``; the cross K/V of
+            ``init_cache(params=, batch=)`` equal the prefill's.
+  decode  : 16 steps from position 224; layer 0's self K/V equal a fresh
+            prefill's of the 240 tokens, a next-position control fails.
+  serve, profile : as for phi3; the fp32 witness has every layer. The
+            engine gives the model no frames (as the reference's), so it
+            decodes over zero cross K/V.
+Each whisper phase logs its device memory peak.
 Then the card's name and power limit, one JSON line of kernel records
 (each with its body per dtype, ``design``, its TFLOP/s and its share of
 the bound), and the result line. Any failure raises and exits non-zero; without a
@@ -322,6 +346,13 @@ MOE_TIMED_T = (8192, 4)
 # place of the bf16 weights); internvl2's first 4 of 48 layers (8.5 GB)
 ARCTIC_WITNESS_LAYERS = 1
 VLM_WITNESS_LAYERS = 4
+# whisper-small at full width and depth (encoder-decoder, 0.6 GB in bf16):
+# a batch of 16 clips of 1500 encoder frames, a decoder prompt of 224
+# tokens and whisper's decoder context of 448 positions
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_CACHE_LEN = 16, 224, 448
+# both kernels, non-causal over a ragged last key tile (1500 = 23 * 64 +
+# 28) beside whisper's own shapes (b, hq, hkv, sq, skv, d, causal, window)
+WHISPER_CASES = [(1, 4, 4, 100, 1500, 64, False, 0)]
 # the governed-serving scenario, with the constants of
 # examples/serve_pipeline.py, and the smoke model of its CPU replay
 GOV_PLATFORM = "mac"
@@ -375,13 +406,13 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def library_ms(q, k, v, window: int = 0) -> float:
-    """One PyTorch call computing the same function (causal, and with a
-    ``window`` its mask as a boolean ``attn_mask``), timed as a yardstick;
-    the port never calls it."""
+def library_ms(q, k, v, window: int = 0, causal: bool = True) -> float:
+    """One PyTorch call computing the same function (causal or unmasked,
+    and with a ``window`` its causal mask as a boolean ``attn_mask``),
+    timed as a yardstick; the port never calls it."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if not window:
-        return time_ms(lambda: sdpa(q, k, v, is_causal=True,
+        return time_ms(lambda: sdpa(q, k, v, is_causal=causal,
                                     enable_gqa=True))
     pos = torch.arange(q.shape[2], device=q.device)
     mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
@@ -527,14 +558,20 @@ def phase_kernel(gen, added, peaks: tuple[float, float]) -> dict:
     return rec
 
 
-def attn_work(b, hq, hkv, s, d, window: int = 0) -> tuple[int, int]:
-    """(flops, bytes) of causal prefill attention: 4 D flops (q.k and p.v)
-    for each (query, key) pair the mask shows, per batch and q head: S (S +
-    1) / 2 causal pairs, fewer under a ``window`` of w (w (w + 1) / 2 + (S
-    - w) w); q, o, k, v each moved once in bf16."""
-    w = min(window or s, s)
-    pairs = w * (w + 1) // 2 + (s - w) * w
-    return 4 * b * hq * pairs * d, 2 * b * s * (2 * hq + 2 * hkv) * d
+def attn_work(b, hq, hkv, s, d, window: int = 0, *, skv: int | None = None,
+              causal: bool = True) -> tuple[int, int]:
+    """(flops, bytes) of prefill attention of S queries over ``skv`` keys
+    (default S): 4 D flops (q.k and p.v) for each (query, key) pair the
+    mask shows, per batch and q head: S (S + 1) / 2 causal pairs, fewer
+    under a ``window`` of w (w (w + 1) / 2 + (S - w) w), S x Skv without
+    the causal mask; q, o, k, v each moved once in bf16."""
+    skv = s if skv is None else skv
+    if causal:
+        w = min(window or s, s)
+        pairs = w * (w + 1) // 2 + (s - w) * w
+    else:
+        pairs = s * skv
+    return 4 * b * hq * pairs * d, 2 * b * d * (2 * hq * s + 2 * hkv * skv)
 
 
 def bound(flops, nbytes, peaks) -> tuple[float, str]:
@@ -571,20 +608,24 @@ def slot_positions(s: int, slots: int, device) -> torch.Tensor:
     return s - slots + torch.remainder(j - s, slots)
 
 
-def kv_rel_err(cache, ref, s: int) -> tuple[float, float, str]:
+def kv_rel_err(cache, ref, s: int, rows: dict | None = None
+               ) -> tuple[float, float, str]:
     """Largest per-position relative L2 error (over Hkv x hd) of every
     cached K/V row of every layer against ``ref``'s, the rolling leaves in
     their rolled order, over layers, lanes and positions: (all positions,
-    the late half of the prompt, the worst leaf and layer)."""
+    the late half of the prompt, the worst leaf and layer). A leaf named
+    in ``rows`` holds that many rows (an encoder-decoder's cross K/V: the
+    frames), the others the prompt's ``s``."""
     worst, late, where = 0.0, 0.0, ""
     for key in cache:
         if key == "pos":
             continue
         leaf, other = cache[key], ref[key]
+        n = (rows or {}).get(key, s)
         layers = leaf.reshape(-1, *leaf.shape[-4:])
         others = other.reshape(-1, *other.shape[-4:])
-        pos = slot_positions(s, leaf.shape[-3], leaf.device)
-        is_late = pos >= s // 2
+        pos = slot_positions(n, leaf.shape[-3], leaf.device)
+        is_late = pos >= n // 2
         for i in range(layers.shape[0]):
             a = layers[i, :, :len(pos)].float().flatten(2)
             b = others[i, :, :len(pos)].float().flatten(2)
@@ -794,9 +835,9 @@ def phase_serve(gen, cfg, model, params, witness_layers=None,
     full width and, where fp32 weights of every layer do not fit beside
     the bf16 ones, over the first ``witness_layers`` layers: the one cut
     of this phase (phi3: 4 of 40 layers; gemma3: one superblock, 6 of 48;
-    zamba2 and kimi: every layer; arctic: layer 0, built ``in_place`` of
-    the bf16 weights after the bf16 gates, so ``params`` is consumed;
-    internvl2: 4 of 48).
+    zamba2, kimi and whisper: every layer; arctic: layer 0, built
+    ``in_place`` of the bf16 weights after the bf16 gates, so ``params``
+    is consumed; internvl2: 4 of 48).
 
     Request 0 is admitted to slot 0 (the first free slot) in every run.
     In a MoE layer a decode step's tokens share each expert's capacity of
@@ -890,12 +931,16 @@ def _profile(fn) -> dict:
             "top_ms": [[name, t / 1e3] for name, t in top]}
 
 
-def phase_profile(gen, cfg, model, params, b: int, s: int) -> None:
+def phase_profile(gen, cfg, model, params, b: int, s: int,
+                  extra: dict | None = None, cache_len: int = CACHE_LEN
+                  ) -> None:
+    """One prefill of ``b`` x ``s`` random tokens (plus ``extra`` inputs,
+    an encoder-decoder's frames) and four decode steps, each traced."""
     batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
-                                     device=DEVICE)}
+                                     device=DEVICE), **(extra or {})}
     out = {}
     prefill = _profile(lambda: out.update(
-        res=model.prefill(params, batch, CACHE_LEN)))
+        res=model.prefill(params, batch, cache_len)))
     cache, last = out["res"]
     tok = embedloss.greedy(last, params["embed"], valid_vocab=cfg.vocab)
     decode = _profile(lambda: [model.decode_step(params, cache, tok)
@@ -2028,22 +2073,25 @@ def phase_moe_vlm_prefill(gen, cfg, model, params, info, fa_rec, ca_rec):
     return cache, last, batch
 
 
-def phase_decode_kv(cfg, model, params, cache, last, tokens) -> None:
-    """``DECODE_STEPS`` steps from position 2048; then layer 0's K/V at
-    the decoded positions, which depend only on the tokens and their
-    positions (layer 0 lies before any MoE, so the capacity of 4 decode
-    tokens against 8256 prefill tokens cannot separate them), must equal a
-    fresh prefill's of the same 2064 tokens within ``KV_REL_TOL``. A
-    control reads each decoded row against the fresh prefill's next
-    position and must fail on K."""
+def phase_decode_kv(cfg, model, params, cache, last, batch,
+                    keys=("k", "v"), cache_len: int = CACHE_LEN) -> None:
+    """``DECODE_STEPS`` steps from the prompt's end (2048; whisper's 224);
+    then layer 0's self-attention K/V (``keys``) at the decoded positions,
+    which depend only on the tokens and their positions (layer 0 lies
+    before any MoE, so the capacity of 4 decode tokens against 8256
+    prefill tokens cannot separate them), must equal a fresh prefill's of
+    the same prompt and decoded tokens (the rest of ``batch``, whisper's
+    frames, as it was) within ``KV_REL_TOL``. A control reads each decoded
+    row against the fresh prefill's next position and must fail on K."""
+    tokens = batch["tokens"]
     s = tokens.shape[1]
     toks = phase_decode(cfg, model, params, cache, last, s)
     seen = torch.cat([tokens, toks[:, :DECODE_STEPS].to(tokens.dtype)],
                      dim=1)
-    fresh, _ = model.prefill(params, {"tokens": seen}, CACHE_LEN)
+    fresh, _ = model.prefill(params, dict(batch, tokens=seen), cache_len)
     n = s + DECODE_STEPS
     errs = {}
-    for key in ("k", "v"):
+    for key in keys:
         a = cache[key][0, :, :n].float().flatten(2)
         b = fresh[key][0, :, :n].float().flatten(2)
         e = (a - b).norm(dim=-1) / b.norm(dim=-1)
@@ -2057,11 +2105,226 @@ def phase_decode_kv(cfg, model, params, cache, last, tokens) -> None:
         require(e["all_positions"] <= KV_REL_TOL,
                 f"{cfg.name} layer 0 {key} after decode vs a fresh prefill: "
                 f"{e['all_positions']} > {KV_REL_TOL}")
-    require(errs["k"]["control_next_position"] > KV_REL_TOL,
+    control = errs[keys[0]]["control_next_position"]
+    require(control > KV_REL_TOL,
             f"{cfg.name} layer 0 K: the next-position control reads "
-            f"{errs['k']['control_next_position']}, not above {KV_REL_TOL}")
+            f"{control}, not above {KV_REL_TOL}")
     log(phase="decode_kv", arch=cfg.name, positions=[s, n - 1],
         layer0_rel_err_vs_fresh_prefill=errs, limit=KV_REL_TOL)
+
+
+# ============================================================ whisper-small
+def whisper_shapes(cfg) -> dict[str, tuple]:
+    """The attention shapes of whisper's prefill (b, hq, hkv, sq, skv, d,
+    causal): the encoder's self-attention over the frames, the decoder's
+    causal self-attention over the prompt, and its cross-attention from
+    the prompt to the frames."""
+    b, s, t = WHISPER_BATCH, WHISPER_PROMPT, cfg.enc_len
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {"encoder": (b, h, hkv, t, t, d, False),
+            "decoder_self": (b, h, hkv, s, s, d, True),
+            "cross": (b, h, hkv, s, t, d, False)}
+
+
+def phase_whisper_kernels(gen, peaks, fa_rec, ca_rec) -> None:
+    """Both attention kernels on ``WHISPER_CASES`` and at whisper's three
+    prefill shapes, fp32 (the CUDA-core bodies, 2e-5) and bf16 (the
+    ``wgmma`` bodies, 2e-2), against their plain version; kernel times in
+    both dtypes, and in bf16 the plain and library (SDPA, unmasked or
+    causal) times, the bound of the pairs the mask shows, TFLOP/s and the
+    share of the bound, added to each kernel's record under
+    ``whisper_shapes``."""
+    kernels = (("flash", fa.flash_attention_cuda, fa_rec),
+               ("chunked", ca.chunked_attention_cuda, ca_rec))
+    errs = {}
+    for case in WHISPER_CASES:
+        b, hq, hkv, sq, skv, d, causal, window = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(gen, b, hq, hkv, sq, skv, d, dtype)
+            ref = attention_kernel_ref(q, k, v, causal=causal, window=window)
+            for name, kernel, _ in kernels:
+                out = kernel(q, k, v, causal=causal, window=window)
+                torch.cuda.synchronize()
+                err = max_err(out, ref)
+                require(out.shape == ref.shape and err < TOL[dtype],
+                        (name, case, dtype, err))
+                errs[f"{name}/{case}/{str(dtype)[6:]}"] = err
+
+    cfg = get_config("whisper-small")
+    for shape, (b, hq, hkv, sq, skv, d, causal) in whisper_shapes(
+            cfg).items():
+        flops, nbytes = attn_work(b, hq, hkv, sq, d, skv=skv, causal=causal)
+        bound_ms, bound_by = bound(flops, nbytes, peaks)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(gen, b, hq, hkv, sq, skv, d, dtype)
+            ref = attention_kernel_ref(q, k, v, causal=causal)
+            bf16 = dtype == torch.bfloat16
+            if bf16:
+                plain_ms = time_ms(lambda: attention_kernel_ref(
+                    q, k, v, causal=causal), reps=20)
+                lib_ms = library_ms(q, k, v, causal=causal)
+            for name, kernel, rec in kernels:
+                out = kernel(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                err = max_err(out, ref)
+                require(bool(torch.isfinite(out).all()) and err < TOL[dtype],
+                        f"{name} kernel error {err} ({str(dtype)[6:]}) at "
+                        f"whisper's {shape} shape")
+                ms = time_ms(lambda: kernel(q, k, v, causal=causal))
+                entry = rec.setdefault("whisper_shapes", {}).setdefault(
+                    shape, {"shape": [b, hq, hkv, sq, skv, d],
+                            "causal": causal})
+                if not bf16:
+                    entry["fp32"] = {"max_abs_err": err, "ms": ms}
+                    continue
+                entry.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=lib_ms, gflop=flops / 1e9,
+                             mbytes=nbytes / 1e6, tflops=flops / ms / 1e9,
+                             share_of_bound=bound_ms / ms)
+                del out
+            del q, k, v, ref
+    log(phase="whisper_kernels", cases=list(WHISPER_CASES),
+        max_abs_err_cases=errs, flash=fa_rec["whisper_shapes"],
+        chunked=ca_rec["whisper_shapes"])
+
+
+def encoder_made_causal():
+    """The control: prefill attention (plain chunked) whose encoder
+    self-attention is causal, as a kernel that ignored ``causal=False``
+    would make it. The encoder's calls are the non-causal ones whose
+    queries are their keys (Sq = Skv = 1500); cross-attention (224 queries
+    over 1500 keys) stays unmasked, the decoder's self-attention causal."""
+    return prefill_attention(
+        lambda q, k, v, causal, window: attention.flash_attention_xla(
+            q, k, v, causal=causal or q.shape[1] == k.shape[1],
+            window=window))
+
+
+def phase_whisper_prefill(gen, fa_rec, ca_rec):
+    """whisper-small at full width and depth, bf16, seeded random weights:
+    16 clips of 1500 frames (N(0, 1) from ``gen``, the frontend stub's
+    embeddings) and a 224-token prompt each, into a 448-position cache.
+    Exactly 36 flash launches (12 encoder, 12 decoder self, 12 cross
+    attentions), or 36 chunked ones on the chunked path. Both paths' last
+    hidden state (relative max-norm, ``PREFILL_REL_TOL``) and every cached
+    K/V row (``KV_REL_TOL``: ``k_self`` / ``v_self`` over the prompt,
+    ``k_cross`` / ``v_cross`` over all 1500 frames) against the plain
+    prefill. A control whose encoder attention is causal must read above
+    the limit on ``k_cross``; the cross K/V of ``init_cache(params=,
+    batch=)`` must equal the prefill's within ``KV_REL_TOL``."""
+    cfg = get_config("whisper-small")
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    b, s, t = WHISPER_BATCH, WHISPER_PROMPT, cfg.enc_len
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                     device=DEVICE),
+             "frames": torch.randn((b, t, cfg.d_model), generator=gen,
+                                   device=DEVICE)}
+    model.prefill(params, batch, WHISPER_CACHE_LEN)      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    cache, last = model.prefill(params, batch, WHISPER_CACHE_LEN)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated()
+    launches = {"kernel": launch_counts()}
+    n_attn = cfg.n_enc_layers + 2 * cfg.n_layers
+    want = {"ssd_scan": 0, "flash_attention": n_attn,
+            "chunked_attention": 0}
+    require(launches["kernel"] == want,
+            f"whisper prefill launches {launches['kernel']}, want {want}")
+    require(last.shape == (b, cfg.d_model) and torch.isfinite(last).all(),
+            "last hidden state shape or finiteness")
+
+    chunked = Model(dataclasses.replace(cfg, attn_impl="chunked"))
+    reset_launches()
+    t0 = time.perf_counter()
+    runs = {"chunked": chunked.prefill(params, batch, WHISPER_CACHE_LEN)}
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    launches["chunked"] = launch_counts()
+    want_c = dict(want, flash_attention=0, chunked_attention=n_attn)
+    require(launches["chunked"] == want_c,
+            f"whisper chunked prefill launches {launches['chunked']}, "
+            f"want {want_c}")
+    runs["kernel"] = (cache, last)
+    plain = Model(dataclasses.replace(cfg, attn_impl="xla_flash"))
+    t0 = time.perf_counter()
+    plain_cache, plain_last = plain.prefill(params, batch, WHISPER_CACHE_LEN)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    with encoder_made_causal():
+        runs["control_encoder_causal"] = plain.prefill(params, batch,
+                                                       WHISPER_CACHE_LEN)
+    rows = {"k_cross": t, "v_cross": t}
+    cross = ("k_cross", "v_cross")
+    filled = model.init_cache(b, WHISPER_CACHE_LEN, device=DEVICE,
+                              params=params, batch=batch)
+    init_cross = kv_rel_err({k: filled[k] for k in cross}, cache, s, rows)
+    del filled
+    errs = {}
+    for name in list(runs):
+        run_cache, run_last = runs.pop(name) if name != "kernel" \
+            else runs[name]
+        kv, kv_late, worst = kv_rel_err(run_cache, plain_cache, s, rows)
+        errs[name] = {"last": rel_max(run_last, plain_last), "kv": kv,
+                      "kv_late_half": kv_late, "kv_worst": worst,
+                      "k_cross": kv_rel_err(
+                          {"k_cross": run_cache["k_cross"]}, plain_cache, s,
+                          rows)[0]}
+        del run_cache, run_last
+    del runs, plain_cache
+    for name in ("kernel", "chunked"):
+        e = errs[name]
+        require(e["last"] <= PREFILL_REL_TOL,
+                f"whisper {name} prefill: last hidden state {e['last']} > "
+                f"{PREFILL_REL_TOL}")
+        require(e["kv"] <= KV_REL_TOL,
+                f"whisper {name} prefill: K/V relative error {e['kv']} "
+                f"({e['kv_worst']}) > {KV_REL_TOL}")
+    ctrl = errs["control_encoder_causal"]["k_cross"]
+    require(ctrl > KV_REL_TOL,
+            f"the control (encoder made causal) reads {ctrl} on k_cross, "
+            f"not above {KV_REL_TOL}: the gate cannot see the encoder's mask")
+    require(init_cross[0] <= KV_REL_TOL,
+            f"init_cache(params=, batch=)'s cross K/V vs the prefill's: "
+            f"{init_cross[0]} ({init_cross[2]}) > {KV_REL_TOL}")
+    fa_rec["launches_by_path"]["whisper-small prefill"] = \
+        launches["kernel"]["flash_attention"]
+    ca_rec["launches_by_path"]["whisper-small chunked prefill"] = \
+        launches["chunked"]["chunked_attention"]
+    log(phase="prefill", arch=cfg.name, params=sum(
+        x.numel() for g in params.values()
+        for x in (g.values() if isinstance(g, dict) else [g])),
+        depth=[cfg.n_enc_layers, cfg.n_layers], init_s=init_s, batch=b,
+        frames=t, prompt=s, cache_len=WHISPER_CACHE_LEN, prefill_s=prefill_s,
+        prefill_tokens_per_s=b * s / prefill_s,
+        prefill_frames_per_s=b * t / prefill_s, chunked_prefill_s=chunked_s,
+        plain_prefill_s=plain_s, launches=launches, err_vs_plain=errs,
+        init_cache_cross_rel_err_vs_prefill=init_cross[0],
+        rel_err_limit=PREFILL_REL_TOL, kv_rel_err_limit=KV_REL_TOL,
+        init_peak_mem_gb=init_peak / 1e9,
+        prefill_peak_mem_gb=prefill_peak / 1e9,
+        run_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return cfg, model, params, cache, last, batch
+
+
+def peak_mem(arch: str, what: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, logging the device memory peak of the call."""
+    torch.cuda.reset_peak_memory_stats()
+    out = fn(*args, **kw)
+    log(phase="peak_mem", arch=arch, of=what,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return out
 
 
 def free_model(arch: str) -> None:
@@ -2138,7 +2401,7 @@ def main() -> int:
     phase_moe(gen, cfg, params, peaks)
     cache, last, batch = phase_moe_vlm_prefill(gen, cfg, model, params, info,
                                                fa_rec, ca_rec)
-    phase_decode_kv(cfg, model, params, cache, last, batch["tokens"])
+    phase_decode_kv(cfg, model, params, cache, last, batch)
     del cache, last, batch
     phase_profile(gen, cfg, model, params, *MOE_VLM_ATTN[cfg.name][::3])
     phase_serve(gen, cfg, model, params,
@@ -2150,7 +2413,7 @@ def main() -> int:
     phase_moe(gen, cfg, params, peaks)
     cache, last, batch = phase_moe_vlm_prefill(gen, cfg, model, params, info,
                                                fa_rec, ca_rec)
-    phase_decode_kv(cfg, model, params, cache, last, batch["tokens"])
+    phase_decode_kv(cfg, model, params, cache, last, batch)
     del cfg, model, params, cache, last, batch
     free_model("kimi-k2-1t-a32b")
 
@@ -2161,6 +2424,22 @@ def main() -> int:
     del cache, last, batch
     phase_serve(gen, cfg, model, params, witness_layers=VLM_WITNESS_LAYERS)
     phase_profile(gen, cfg, model, params, *MOE_VLM_ATTN[cfg.name][::3])
+    del cfg, model, params
+    free_model("internvl2-26b")
+
+    arch = "whisper-small"
+    peak_mem(arch, "kernels", phase_whisper_kernels, gen, peaks, fa_rec,
+             ca_rec)
+    cfg, model, params, cache, last, batch = phase_whisper_prefill(
+        gen, fa_rec, ca_rec)
+    peak_mem(arch, "decode", phase_decode_kv, cfg, model, params, cache,
+             last, batch, keys=("k_self", "v_self"),
+             cache_len=WHISPER_CACHE_LEN)
+    del cache, last
+    peak_mem(arch, "serve", phase_serve, gen, cfg, model, params)
+    peak_mem(arch, "profile", phase_profile, gen, cfg, model, params,
+             WHISPER_BATCH, WHISPER_PROMPT, extra={"frames": batch["frames"]},
+             cache_len=WHISPER_CACHE_LEN)
 
     print(smi_name_power(), flush=True)
     print(json.dumps({"kernels": [fa_rec, ca_rec, ssd_rec]}), flush=True)

@@ -44,7 +44,8 @@ def params_from_jax(tree, cfg: ModelConfig, device=None) -> dict:
     """The reference's parameters (nested dict of numpy arrays) as the
     port's, in ``cfg.param_dtype`` on ``device`` (default ``cuda``). Every
     group (``layers``; windowed dense ``local``, ``global``, ``tail``;
-    hybrid ``mamba``, ``tail``, ``shared_attn``) is walked against
+    hybrid ``mamba``, ``tail``, ``shared_attn``; encdec ``enc``, ``dec``)
+    is walked against
     ``Model.param_shapes``; a missing or extra name or a
     wrong shape raises ``ValueError``."""
     dev = resolve_device(device)

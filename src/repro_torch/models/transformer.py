@@ -15,14 +15,21 @@
   hybrid : zamba2 — Mamba2 superblocks of ``shared_attn_every`` layers,
            each followed by one *shared* attention + MLP block (one set of
            weights for every application), then a tail of
-           ``n_layers % shared_attn_every`` Mamba2 layers.
+           ``n_layers % shared_attn_every`` Mamba2 layers;
+  encdec / audio : whisper — a non-causal encoder over the batch's
+           ``frames`` (B, enc_len, D) (the audio frontend is a stub in the
+           reference too) plus sinusoidal positions, and a decoder whose
+           layers are causal self-attention (RoPE), cross-attention to the
+           encoder's output (no RoPE) and the MLP.
 
 Parameters are a dict with the reference's leaf names and its stacked
 layouts (``params["layers"]["wq"]`` is (L, D, Hq*hd); windowed dense has
 ``local`` (n_super, global_every - 1, ...), ``global`` (n_super, ...) and
 ``tail`` (n_tail, ...); moe's expert leaves are (L, E, ...); hybrid has
 ``mamba`` (n_super, per, ...), ``tail`` (n_tail, ...) and an unstacked
-``shared_attn``), so
+``shared_attn``; encdec has ``enc`` (n_enc_layers, ...), ``dec`` (L, ...)
+whose cross-attention leaves carry a ``c`` prefix, and ``ln_enc_final``),
+so
 ``repro_torch.convert.params_from_jax`` loads the reference's parameters
 as they are. The reference's ``lax.scan`` over
 layers is a Python loop over the stack dims. Its donated, functional
@@ -35,6 +42,7 @@ from __future__ import annotations
 import math
 from typing import Any
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -48,18 +56,23 @@ from repro_torch.models.ssm import mamba_block
 
 Params = dict[str, Any]
 
-KINDS = ("dense", "moe", "vlm", "ssm", "hybrid")
+KINDS = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec", "audio")
 # the families of one stack of attention + FFN layers (``layers``)
 DENSE_KINDS = ("dense", "moe", "vlm")
+# the encoder-decoder families (whisper): ``enc`` and ``dec`` stacks
+ENCDEC_KINDS = ("encdec", "audio")
 # leaves with an expert dim after the stack dims: their fan-in is the next
 # dim (d or f), and they are drawn one (layer, expert) slice at a time
 EXPERT_LEAVES = ("moe_gate", "moe_up", "moe_down")
 SSD_IMPLS = ("kernel", "blocked")
 # stack dims of each layer group: dense/ssm "layers" (L,), windowed dense
 # "local" (n_super, global_every - 1) and "global" (n_super,), hybrid
-# "mamba" (n_super, per), "tail" (n_tail,), "shared_attn" unstacked
+# "mamba" (n_super, per), "tail" (n_tail,), "shared_attn" unstacked,
+# encdec "enc" (n_enc_layers,) and "dec" (L,)
 STACK_DIMS = {"layers": 1, "local": 2, "global": 1, "mamba": 2, "tail": 1,
-              "shared_attn": 0}
+              "shared_attn": 0, "enc": 1, "dec": 1}
+# the prefix of a decoder layer's cross-attention leaves (``cwq``, ...)
+CROSS = "c"
 
 
 def _dt(name: str) -> torch.dtype:
@@ -67,10 +80,11 @@ def _dt(name: str) -> torch.dtype:
 
 
 class Model(nn.Module):
-    """The dense (with or without a sliding window), moe, vlm, ssm and
-    hybrid families. Methods take the parameter dict explicitly, as the
-    reference's do, so one model object serves several parameter sets (the
-    tests hold the port against the reference this way)."""
+    """The dense (with or without a sliding window), moe, vlm, ssm, hybrid
+    and encoder-decoder families. Methods take the parameter dict
+    explicitly, as the reference's do, so one model object serves several
+    parameter sets (the tests hold the port against the reference this
+    way)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -80,11 +94,16 @@ class Model(nn.Module):
             raise NotImplementedError(
                 f"{cfg.name}: kind={cfg.kind!r}, window={cfg.window} is not "
                 f"ported yet; the port runs {KINDS}, a window on dense only "
-                "(ROADMAP Queue A item 7: encdec/audio, windowed moe/vlm)")
+                "(ROADMAP Queue A: windowed moe/vlm/encdec, which no "
+                "reference config has)")
         if cfg.ssd_impl not in SSD_IMPLS:
             raise ValueError(f"unknown ssd_impl {cfg.ssd_impl!r}; expected "
                              f"one of {SSD_IMPLS}")
         self.cfg = cfg
+        # the encoder's positions by (frames, device, dtype), built once:
+        # the host computes the table in float64 numpy (whisper's is 1500 x
+        # 768), and the reference's jit folds it to a constant
+        self._enc_pos: dict[tuple, torch.Tensor] = {}
 
     # ------------------------------------------------------------ structure
     @property
@@ -108,14 +127,24 @@ class Model(nn.Module):
         return self.cfg.n_layers % self._period if self._period else 0
 
     # ---------------------------------------------------------------- init
-    def _attn_mlp_shapes(self, stack: tuple) -> dict[str, tuple]:
+    def _attn_shapes(self, stack: tuple, pre: str = "") -> dict[str, tuple]:
+        """An attention block's leaves; ``pre`` ``CROSS`` names a decoder
+        layer's cross-attention (the reference's ``_attn_leaves(cross=)``)."""
         c = self.cfg
-        d, hq, hkv, hd, f = c.d_model, c.n_heads, c.n_kv_heads, c.hd, c.d_ff
-        return {"ln_attn": stack + (d,), "wq": stack + (d, hq * hd),
-                "wk": stack + (d, hkv * hd), "wv": stack + (d, hkv * hd),
-                "wo": stack + (hq * hd, d), "ln_mlp": stack + (d,),
-                "w_gate": stack + (d, f), "w_up": stack + (d, f),
-                "w_down": stack + (f, d)}
+        d, hq, hkv, hd = c.d_model, c.n_heads, c.n_kv_heads, c.hd
+        return {pre + "ln_attn": stack + (d,),
+                pre + "wq": stack + (d, hq * hd),
+                pre + "wk": stack + (d, hkv * hd),
+                pre + "wv": stack + (d, hkv * hd),
+                pre + "wo": stack + (hq * hd, d)}
+
+    def _mlp_shapes(self, stack: tuple) -> dict[str, tuple]:
+        d, f = self.cfg.d_model, self.cfg.d_ff
+        return {"ln_mlp": stack + (d,), "w_gate": stack + (d, f),
+                "w_up": stack + (d, f), "w_down": stack + (f, d)}
+
+    def _attn_mlp_shapes(self, stack: tuple) -> dict[str, tuple]:
+        return {**self._attn_shapes(stack), **self._mlp_shapes(stack)}
 
     def _moe_shapes(self, stack: tuple) -> dict[str, tuple]:
         """A MoE layer's leaves in the reference's order (``_moe_leaves``):
@@ -160,6 +189,13 @@ class Model(nn.Module):
             out["layers"] = self._attn_mlp_shapes((c.n_layers,))
         elif c.kind == "ssm":
             out["layers"] = self._mamba_shapes((c.n_layers,))
+        elif c.kind in ENCDEC_KINDS:
+            out["enc"] = self._attn_mlp_shapes((c.n_enc_layers,))
+            dec = (c.n_layers,)
+            out["dec"] = {**self._attn_shapes(dec),
+                          **self._attn_shapes(dec, CROSS),
+                          **self._mlp_shapes(dec)}
+            out["ln_enc_final"] = (c.d_model,)
         else:
             out["mamba"] = self._mamba_shapes((self.n_super,
                                                c.shared_attn_every))
@@ -170,7 +206,8 @@ class Model(nn.Module):
 
     def init(self, seed: int = 0, device=None) -> Params:
         """Random parameters from a seeded ``torch.Generator`` on ``device``
-        (default ``cuda``): dense leaves ~ N(0, 1/fan_in), norm scales 0,
+        (default ``cuda``): dense leaves ~ N(0, 1/fan_in), norm scales 0
+        (a cross-attention's ``cln_attn`` too, as the reference's ``norm``),
         and the reference's constants for the SSM's ``dt_bias``, ``A_log``
         and ``D``. A stacked leaf is drawn one layer at a time in fp32 and
         copied into the preallocated leaf in ``param_dtype``, so the fp32
@@ -187,7 +224,7 @@ class Model(nn.Module):
         def leaf(name, shape, n_stack, fan_in_axis=None):
             out = torch.empty(shape, dtype=dtype, device=dev)
             h = shape[-1]
-            if name.startswith("ln_") or name == "ssm_norm":
+            if name.startswith(("ln_", CROSS + "ln_")) or name == "ssm_norm":
                 return out.zero_()
             if name == "D":
                 return out.fill_(1.0)
@@ -231,6 +268,23 @@ class Model(nn.Module):
                               impl=c.attn_impl)
         return x + o.reshape(b, s, -1) @ p["wo"], (k, v)
 
+    def _attn_nocausal(self, p, x, kv_from=None):
+        """Encoder self-attention, or with ``kv_from`` (the encoder's
+        output, not normed again) a decoder layer's cross-attention, whose
+        leaves are named with the ``CROSS`` prefix: no RoPE, no mask."""
+        c = self.cfg
+        b, s, _ = x.shape
+        prefix = "" if kv_from is None else CROSS
+        h = rms_norm(x, p[prefix + "ln_attn"], c.norm_eps)
+        src = h if kv_from is None else kv_from
+        t = src.shape[1]
+        q = (h @ p[prefix + "wq"]).reshape(b, s, c.n_heads, c.hd)
+        k = (src @ p[prefix + "wk"]).reshape(b, t, c.n_kv_heads, c.hd)
+        v = (src @ p[prefix + "wv"]).reshape(b, t, c.n_kv_heads, c.hd)
+        o = context_attention(q, k, v, causal=False, window=0,
+                              impl=c.attn_impl)
+        return x + o.reshape(b, s, -1) @ p[prefix + "wo"], (k, v)
+
     def _ffn(self, p, x):
         """The FFN block: SwiGLU, or in a MoE layer the experts (plus the
         dense SwiGLU of the same normed input with ``dense_residual``)."""
@@ -257,8 +311,10 @@ class Model(nn.Module):
         application (an attention + MLP block), where ``window`` is its
         prefill attention's window (0: full causal) and ``rolling`` whether
         its cache is a rolling buffer of the last ``window`` positions;
-        ``("mamba", p, (conv, state), 0, False)`` for a Mamba2 layer. The
-        cache views are None without a cache."""
+        ``("mamba", p, (conv, state), 0, False)`` for a Mamba2 layer;
+        ``("dec", p, (k_self, v_self, k_cross, v_cross), 0, False)`` for an
+        encoder-decoder's decoder layer (self-attention, cross-attention,
+        MLP). The cache views are None without a cache."""
         c = self.cfg
 
         def views(*keys_idx):
@@ -285,6 +341,11 @@ class Model(nn.Module):
             for i in range(c.n_layers):
                 yield ("mamba", self._index(params["layers"], i),
                        views(("conv", i), ("state", i)), 0, False)
+        elif c.kind in ENCDEC_KINDS:
+            for i in range(c.n_layers):
+                yield ("dec", self._index(params["dec"], i),
+                       views(("k_self", i), ("v_self", i), ("k_cross", i),
+                             ("v_cross", i)), 0, False)
         else:
             for si in range(self.n_super):
                 for j in range(c.shared_attn_every):
@@ -311,8 +372,13 @@ class Model(nn.Module):
 
         A vlm batch may carry ``patches`` (B, P, D): they replace the first
         P positions' token embeddings, in the compute dtype, before the
-        layers (RoPE positions are unchanged)."""
+        layers (RoPE positions are unchanged). An encoder-decoder's batch
+        carries ``frames`` (B, T, D): the encoder's output over them is
+        what every decoder layer cross-attends to, and each layer's cross
+        K/V fill rows 0..T-1 of its ``k_cross`` / ``v_cross`` leaves."""
         c = self.cfg
+        enc = self.encode(params, batch["frames"]) \
+            if c.kind in ENCDEC_KINDS else None
         tokens = batch["tokens"]
         x = embedloss.embed_in(params["embed"], tokens, _dt(c.compute_dtype))
         if c.kind == "vlm" and "patches" in batch:
@@ -332,21 +398,62 @@ class Model(nn.Module):
                     views[1].copy_(state)
                 continue
             x, kv = self._attn_train(p, x, sin, cos, window)
+            if kind == "dec":
+                x, cross = self._attn_nocausal(p, x, kv_from=enc)
+                kv = kv + cross
             if views is not None:
                 for dst, src in zip(views, kv):
                     _place(dst, src, rolling)
             x = self._ffn(p, x)
         return rms_norm(x, params["ln_final"], c.norm_eps)
 
+    def encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder (whisper): frames (B, T, D) -> its normed output
+        (B, T, D). The frames are cast to the compute dtype before the
+        sinusoidal positions (themselves fp32, then the compute dtype) are
+        added, as the reference does: the order of the casts decides the
+        bf16 bits."""
+        c = self.cfg
+        cdt = _dt(c.compute_dtype)
+        key = (frames.shape[1], frames.device, cdt)
+        if key not in self._enc_pos:
+            self._enc_pos[key] = _sinusoid(key[0], c.d_model).to(
+                frames.device, cdt)
+        h = frames.to(cdt) + self._enc_pos[key][None]
+        for i in range(c.n_enc_layers):
+            p = self._index(params["enc"], i)
+            h, _ = self._attn_nocausal(p, h)
+            h = self._ffn(p, h)
+        return rms_norm(h, params["ln_enc_final"], c.norm_eps)
+
+    def cross_kv(self, params: Params, enc_out: torch.Tensor):
+        """Every decoder layer's cross-attention K and V of the encoder's
+        output: two (L, B, T, Hkv, hd) tensors (the reference's one einsum
+        over the layers is one product per layer here)."""
+        c = self.cfg
+        b, t, _ = enc_out.shape
+        dec = params["dec"]
+
+        def stack(w):
+            return torch.stack([(enc_out @ w[i]).reshape(
+                b, t, c.n_kv_heads, c.hd) for i in range(c.n_layers)])
+
+        return stack(dec[CROSS + "wk"]), stack(dec[CROSS + "wv"])
+
     # ================================================================ decode
-    def init_cache(self, batch_size: int, seq_len: int, device=None):
+    def init_cache(self, batch_size: int, seq_len: int, device=None,
+                   params: Params | None = None, batch: dict | None = None):
         """Zeroed decode cache for a max context of ``seq_len``: per-slot
         positions ``pos`` (B,) int32; attention K/V (n, B, S, Hkv, hd),
         windowed layers' rolling K/V of w = min(window, seq_len) slots
         (``k_local`` (n_super, global_every - 1, B, w, Hkv, hd), ``k_tail``
         (n_tail, B, w, Hkv, hd)); Mamba2 conv inputs (n, B, W-1, di+2N) and
-        SSM states (n, B, H, P, N) fp32 — the reference's leaves and
-        shapes."""
+        SSM states (n, B, H, P, N) fp32; an encoder-decoder's self K/V
+        ``k_self`` (L, B, S, Hkv, hd) and cross K/V ``k_cross`` (L, B,
+        enc_len, Hkv, hd) — the reference's leaves and shapes. Given
+        ``params`` and a ``batch`` with ``frames``, an encoder-decoder's
+        cross K/V are those of the encoder's output over the frames, as
+        the reference's; otherwise zeros."""
         c = self.cfg
         dev = resolve_device(device)
         cdt = _dt(c.compute_dtype)
@@ -374,6 +481,18 @@ class Model(nn.Module):
         if c.kind in DENSE_KINDS:
             cache["k"] = zeros(kv(c.n_layers))
             cache["v"] = zeros(kv(c.n_layers))
+            return cache
+        if c.kind in ENCDEC_KINDS:
+            cache["k_self"] = zeros(kv(c.n_layers))
+            cache["v_self"] = zeros(kv(c.n_layers))
+            if params is not None and batch is not None:
+                kc, vc = self.cross_kv(params, self.encode(params,
+                                                           batch["frames"]))
+                cache["k_cross"] = kc.to(device=dev, dtype=cdt)
+                cache["v_cross"] = vc.to(device=dev, dtype=cdt)
+            else:
+                cache["k_cross"] = zeros(kv(c.n_layers, c.enc_len))
+                cache["v_cross"] = zeros(kv(c.n_layers, c.enc_len))
             return cache
         s = c.ssm
         conv = (b, s.conv_width - 1, s.d_inner(c.d_model) + 2 * s.d_state)
@@ -410,6 +529,9 @@ class Model(nn.Module):
         elif c.kind in DENSE_KINDS:
             ax["k"] = kv
             ax["v"] = kv
+        elif c.kind in ENCDEC_KINDS:
+            for key in ("k_self", "v_self", "k_cross", "v_cross"):
+                ax[key] = kv
         elif c.kind == "ssm":
             ax["conv"] = (None, "batch", None, "ff")
             ax["state"] = (None, "batch", "q_heads", None, None)
@@ -429,26 +551,35 @@ class Model(nn.Module):
         :meth:`init_cache` would have produced for that lane. Attention
         masks already hide K/V past a lane's position, but the SSM conv and
         state leaves carry history unconditionally, so every leaf is
-        wiped."""
+        wiped, an encoder-decoder's cross K/V included (as the
+        reference's)."""
         axes = self.cache_axes()
         for key, val in cache.items():
             idx = torch.tensor([slot], device=val.device)
             val.index_fill_(axes[key].index("batch"), idx, 0)
         return cache
 
-    def _attn_decode(self, p, x, cache_kv, pos, rolling=False):
+    def _attn_decode(self, p, x, cache_kv, pos, rolling=False, cross=False):
         """x (B, 1, D); cache_kv = one layer's (k, v) cache views
         (B, S, Hkv, hd), written in place at each lane's position: slot
         ``min(pos, S - 1)``, or ``pos % S`` in a rolling buffer, which then
         holds exactly the window's last S positions and is attended whole
         (every slot is visible once ``pos >= S - 1``). The slot is computed
-        on the device: no host sync, no branch on a device value."""
+        on the device: no host sync, no branch on a device value.
+
+        ``cross`` (a decoder layer's cross-attention, leaves named with the
+        ``CROSS`` prefix): the cache is read only, no RoPE, and every lane
+        attends to all S encoder positions (``pos = S - 1``)."""
         c = self.cfg
         b = x.shape[0]
         k_cache, v_cache = cache_kv
         smax = k_cache.shape[1]
-        h = rms_norm(x, p["ln_attn"], c.norm_eps)
-        q = (h @ p["wq"]).reshape(b, 1, c.n_heads, c.hd)
+        prefix = CROSS if cross else ""
+        h = rms_norm(x, p[prefix + "ln_attn"], c.norm_eps)
+        q = (h @ p[prefix + "wq"]).reshape(b, 1, c.n_heads, c.hd)
+        if cross:
+            o = decode_attention(q[:, 0], k_cache, v_cache, pos=smax - 1)
+            return x + o.reshape(b, 1, -1) @ p[prefix + "wo"]
         k = (h @ p["wk"]).reshape(b, 1, c.n_kv_heads, c.hd)
         v = (h @ p["wv"]).reshape(b, 1, c.n_kv_heads, c.hd)
         # pos is per-slot (B,): each lane rotates and writes at its own
@@ -483,7 +614,9 @@ class Model(nn.Module):
                 views[1].copy_(state)
                 x = x + y
             else:
-                x = self._attn_decode(p, x, views, pos, rolling)
+                x = self._attn_decode(p, x, views[:2], pos, rolling)
+                if kind == "dec":
+                    x = self._attn_decode(p, x, views[2:], pos, cross=True)
                 x = self._ffn(p, x)
         x = rms_norm(x, params["ln_final"], c.norm_eps)
         nxt = embedloss.greedy(x[:, 0], params["embed"], valid_vocab=c.vocab)
@@ -494,13 +627,24 @@ class Model(nn.Module):
     def prefill(self, params: Params, batch: dict, cache_len: int):
         """Full-sequence forward that fills a fresh decode cache in place,
         layer by layer (the batch as :meth:`forward` takes it, a vlm's
-        ``patches`` included). Returns (cache, last_hidden (B, D))."""
+        ``patches`` and an encoder-decoder's ``frames`` included: its self
+        and cross K/V). Returns (cache, last_hidden (B, D))."""
         tokens = batch["tokens"]
         b, s = tokens.shape
         cache = self.init_cache(b, cache_len, device=tokens.device)
         x = self.forward(params, batch, cache=cache)
         cache["pos"].fill_(s)
         return cache, x[:, -1]
+
+
+def _sinusoid(n: int, d: int) -> torch.Tensor:
+    """The encoder's positions (n, d): sin | cos of pos / 10000^(2i/d),
+    computed in numpy float64 and returned in fp32, as the reference's."""
+    pos = np.arange(n)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / d)
+    out = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(out.astype(np.float32))
 
 
 def _place(dst: torch.Tensor, src: torch.Tensor, rolling: bool) -> None:

@@ -31,6 +31,8 @@ SSM_ARCHS = ["mamba2-1.3b", "zamba2-7b"]
 WINDOWED_ARCHS = ["gemma3-1b", "gemma3-12b"]
 # the moe and vlm families (tests/test_torch_moe_model.py)
 MOE_VLM_ARCHS = ["arctic-480b", "internvl2-26b", "kimi-k2-1t-a32b"]
+# the encoder-decoder family (tests/test_torch_whisper.py)
+ENCDEC_ARCHS = ["whisper-small"]
 B, S = 2, 17
 TOL = 1e-5
 
@@ -60,7 +62,7 @@ def _value(v):
 
 
 def test_registry_and_config_copy():
-    ported = ARCHS + SSM_ARCHS + WINDOWED_ARCHS + MOE_VLM_ARCHS
+    ported = ARCHS + SSM_ARCHS + WINDOWED_ARCHS + MOE_VLM_ARCHS + ENCDEC_ARCHS
     assert list_archs() == sorted(ported)
     for arch in ported:
         for ours, ref in ((get_smoke_config(arch), jax_smoke(arch)),
@@ -200,8 +202,10 @@ def test_bf16_config_runs_in_bf16():
 @pytest.mark.parametrize("kw", [dict(kind="encdec", n_enc_layers=1),
                                 dict(kind="audio", n_enc_layers=1)])
 def test_unported_families_raise(kw):
+    """The encoder-decoder families run dense only: a window on them (which
+    no reference config has) raises."""
     cfg = ModelConfig(name="x", n_layers=1, d_model=64, n_heads=4,
-                      n_kv_heads=2, d_ff=64, vocab=128, **kw)
+                      n_kv_heads=2, d_ff=64, vocab=128, window=16, **kw)
     with pytest.raises(NotImplementedError, match="Queue A"):
         Model(cfg)
 

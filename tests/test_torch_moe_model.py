@@ -282,7 +282,7 @@ def test_bf16_moe_runs_in_bf16():
 
 
 @pytest.mark.parametrize("kind,window", [("moe", 16), ("vlm", 16),
-                                         ("audio", 0)])
+                                         ("audio", 16)])
 def test_windowed_moe_vlm_and_audio_raise(kind, window):
     cfg = dataclasses.replace(get_smoke_config(
         "arctic-480b" if kind == "moe" else "internvl2-26b"), kind=kind,
