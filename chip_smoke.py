@@ -29,15 +29,26 @@ Phases, each printing one JSON line:
             is the plain chunked version, and against a control prefill
             whose causal mask lets each query see one key ahead (the
             gate must reject the control).
-  decode  : 16 greedy ``decode_step``s from the prefilled cache.
+  decode  : 16 greedy ``decode_step``s from the prefilled cache; the
+            same steps with the bf16 products widened to fp32 copies first
+            (as before the fused fp32-output products) on a copy of the
+            cache, and the count of greedy tokens that differ (logged).
   serve   : ``ServeEngine`` with 4 slots answers 6 requests, admitting the
-            last two mid-run into freed slots; the first request's tokens
-            must equal its bf16 solo run in an engine of the same 4 slots,
-            and an fp32 witness of phi3's first 4 layers (full width; the
-            one cut of the phase) must give equal tokens served alone by
-            1 and by 4 slots (see ``phase_serve``).
-  profile : a torch.profiler trace of one prefill and four decode steps:
-            device busy time, idle share, top kernels.
+            last two mid-run into freed slots, once with each engine step
+            one replay of a captured CUDA graph (the engine's own step on
+            CUDA) and once eagerly: every token must be equal in the two
+            arms; each arm's step ms, requests/s and a torch.profiler
+            trace of four engine steps (idle share, device ms, device ops
+            and host launches a step). The first request's tokens must
+            equal its bf16 solo run in an engine of the same 4 slots,
+            captured and eager, and an fp32 witness of phi3's first 4
+            layers (full width; the one cut of the phase) must give equal
+            tokens served alone by 1 and by 4 slots, and eagerly by 4
+            (see ``phase_serve``).
+  profile : a torch.profiler trace of one prefill, four decode steps and
+            four replays of the decode step captured as a CUDA graph:
+            device busy time, idle share, device ops, host launches, top
+            kernels.
   governed_serve : the SLO-governed serving scenario of
             ``examples/serve_pipeline.py`` on phi3 (4 slots, a bursty
             trace of 16 requests on the engine's sim clock, a governor
@@ -50,8 +61,10 @@ Phases, each printing one JSON line:
             decision (windows, governor events, admissions, finishes)
             must equal a replay of the same scenario on the CPU with the
             stablelm-3b smoke model; request 0's tokens must equal its
-            4-slot solo run's. Logs the card's wall ms per engine step
-            beside the plan's simulated step.
+            4-slot solo run's. Both arms step by the captured graph; the
+            governed arm runs once more eagerly and must decide and
+            decode the same. Logs the card's wall ms per engine step,
+            captured and eager, beside the plan's simulated step.
 Then phi3's 28 GB are freed and zamba2-7b (Mamba2 + shared attention) runs:
   attention_kernels : the chunked two-pass kernel against
             ``attention_kernel_ref`` on the six reference cases and the
@@ -82,7 +95,9 @@ Then phi3's 28 GB are freed and zamba2-7b (Mamba2 + shared attention) runs:
             logged beside them, the size of bf16's own noise.
   decode, serve, profile : as for phi3; the fp32 witness has every
             layer.
-Then zamba2's 13 GB are freed and gemma3-12b (40 sliding-window layers of
+Then zamba2's 13 GB are freed and mamba2-1.3b (the ssm family, whole,
+2.7 GB) serves as phi3 does, with an fp32 witness of every layer. Then
+gemma3-12b (40 sliding-window layers of
 window 1024 and 8 global layers, head dim 256) runs:
   gemma3_kernels : both attention kernels at head dim 256 against
             ``attention_kernel_ref`` on a causal and a sliding-window case,
@@ -134,8 +149,10 @@ Then gemma3's 23.5 GB are freed, and the MoE and VLM families run:
             the bf16 gates (55.4 GB in fp32 does not fit beside 54.9 GB of
             bf16).
 Then kimi-k2-1t at full width, cut to 1 of 61 layers: moe (dispatch,
-oracle, control, times), prefill (1 flash, 1 chunked launch) and decode,
-gated as arctic's. Then internvl2-26b at full width and depth: prefill of
+oracle, control, times), prefill (1 flash, 1 chunked launch), decode and
+serve, gated as arctic's, but with no fp32 witness: one layer is 72.8 GB
+in fp32, and with its largest bf16 leaf (11.3 GB) it does not fit the
+card (the reckoning is logged). Then internvl2-26b at full width and depth: prefill of
 4 x 2048 tokens whose first 256 positions are patch embeddings, exactly 48
 flash (or chunked) launches, phi3's gates, the mask-one-ahead control and
 a control whose patches are not spliced; decode, serve (fp32 witness of
@@ -163,7 +180,8 @@ runs at full width and depth:
   serve, profile : as for phi3; the fp32 witness has every layer. The
             engine gives the model no frames (as the reference's), so it
             decodes over zero cross K/V.
-Each whisper phase logs its device memory peak.
+Each whisper phase, and every serve phase, logs its device memory
+peak.
 Then the card's name and power limit, one JSON line of kernel records
 (each with its body per dtype, ``design``, its TFLOP/s and its share of
 the bound), and the result line. Any failure raises and exits non-zero; without a
@@ -200,12 +218,14 @@ from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_kernel_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_ref_sequential  # noqa: E402
-from repro_torch.models import attention, embedloss, moe, ssm, transformer  # noqa: E402
+from repro_torch.models import (  # noqa: E402
+    attention, embedloss, layers, moe, ssm, transformer)
 from repro_torch.models.config import get_config, get_smoke_config  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
 from repro_torch.obs import MetricsRegistry, Tracer  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     AdmissionPlanner, Request, ServeEngine, SimClock)
+from repro_torch.serve.graph import CapturedStep  # noqa: E402
 
 # b, hq, hkv, sq, skv, d, causal, window (tests/test_kernels.py FLASH_CASES;
 # its Pallas block sizes do not apply to this kernel)
@@ -322,6 +342,10 @@ SSD_MMA = ("ssd_states", "ssd_out")
 # a kernel's mangled SASS name: its name, then its template arguments where
 # it has some (f: fp32, 13__nv_bfloat16: bf16, Li<d>E: the head dim or the
 # padded state dim)
+# the CUDA API calls (cuda*, and the lower-level cu*) that put work on
+# the device
+HOST_LAUNCH = re.compile(r"cu(da)?(LaunchKernel|LaunchCooperativeKernel|"
+                         r"GraphLaunch|Memcpy|Memset)")
 SASS_FN = re.compile(r"(flash_fwd_tc|chunked_fwd_tc|flash_fwd|chunked_fwd|"
                      r"ssd_fwd|ssd_seg|ssd_states|ssd_pass|ssd_out)"
                      r"(?:I(\w*?)EEv|E)")
@@ -346,6 +370,12 @@ MOE_TIMED_T = (8192, 4)
 # place of the bf16 weights); internvl2's first 4 of 48 layers (8.5 GB)
 ARCTIC_WITNESS_LAYERS = 1
 VLM_WITNESS_LAYERS = 4
+# an fp32 witness is built only where it needs at most this share of the
+# card (witness_fits); kimi-k2's one layer does not fit
+WITNESS_HEADROOM = 0.9
+# the serve phase's engine steps traced by torch.profiler, every slot
+# streaming its prompt (prompts are 32-64 tokens)
+PROFILED_STEPS = (8, 9, 10, 11)
 # whisper-small at full width and depth (encoder-decoder, 0.6 GB in bf16):
 # a batch of 16 clips of 1500 encoder frames, a decoder prompt of 224
 # tokens and whisper's decoder context of 448 positions
@@ -737,10 +767,27 @@ def phase_prefill(gen, rec: dict):
     return cfg, model, params, cache, last
 
 
+@contextlib.contextmanager
+def widened():
+    """The bf16 decode products as the code computed them before the
+    fused path: every operand widened to an fp32 copy first (greedy's
+    table, decode attention's K/V cache), then an fp32 product."""
+    saved = attention.fused_f32, layers.fused_f32
+    attention.fused_f32 = layers.fused_f32 = lambda *ts: False
+    try:
+        yield
+    finally:
+        attention.fused_f32, layers.fused_f32 = saved
+
+
 def phase_decode(cfg, model, params, cache, last, prompt: int):
     """``DECODE_STEPS`` greedy steps from a prefilled cache, timed one by
     one; returns the tokens (B, DECODE_STEPS + 1), the first from the
-    prefill's last hidden state."""
+    prefill's last hidden state. A copy of the cache then decodes the same
+    tokens with the products widened (``widened``): the count of its
+    greedy tokens that differ from these is logged, not gated (the fused
+    products sum the same bf16 products in another order)."""
+    copy = {key: leaf.clone() for key, leaf in cache.items()}
     tok = embedloss.greedy(last, params["embed"], valid_vocab=cfg.vocab)
     toks, times = [tok], []
     for _ in range(DECODE_STEPS):
@@ -755,17 +802,31 @@ def phase_decode(cfg, model, params, cache, last, prompt: int):
             "a decoded token outside the vocab")
     require(bool((cache["pos"] == prompt + DECODE_STEPS).all()),
             "cache positions after decode")
+    with widened():
+        wide = [embedloss.greedy(last, params["embed"],
+                                 valid_vocab=cfg.vocab)]
+        for i in range(DECODE_STEPS):     # fed the fused run's tokens
+            wide.append(model.decode_step(params, copy, toks[:, i])[0])
+    del copy
+    differ = torch.stack(wide, dim=1) != toks
     log(phase="decode", arch=cfg.name, batch=toks.shape[0],
         steps=DECODE_STEPS,
         step_ms_p50=statistics.median(times) * 1e3,
-        step_ms_max=max(times) * 1e3, tokens=toks[0].tolist())
+        step_ms_max=max(times) * 1e3, tokens=toks[0].tolist(),
+        widened_tokens_differ=int(differ.sum()),
+        widened_tokens_compared=differ.numel(),
+        widened_first_differing_step=(int(differ.any(0).nonzero()[0])
+                                      if differ.any() else None))
     return toks
 
 
-def solo_tokens(model, params, prompt, slots: int,
-                max_len: int = 128) -> list[int]:
-    """Request 0 served alone by an engine of ``slots`` slots, in slot 0."""
+def solo_tokens(model, params, prompt, slots: int, max_len: int = 128,
+                eager: bool = False) -> list[int]:
+    """Request 0 served alone by an engine of ``slots`` slots, in slot 0:
+    by the captured step, or ``eager``ly."""
     solo = ServeEngine(model, params, batch_slots=slots, max_len=max_len)
+    if eager:
+        solo._step = model.decode_step
     alone = Request(rid=0, prompt=prompt, max_new_tokens=16)
     solo.submit(alone)
     solo.step()
@@ -820,24 +881,114 @@ def fp32_witness(cfg, params, n_layers: int | None, in_place=False):
     return m32, params
 
 
+def serve_run(model, params, prompts, eager: bool) -> tuple[list, dict]:
+    """The requests through a 4-slot engine, by the captured step (the
+    engine's own on CUDA) or ``eager``ly (``engine._step =
+    model.decode_step``). Each step is timed on the host; each ends in the
+    copy of its tokens to the host. The first step holds the capture, so
+    it is logged apart; engine steps ``PROFILED_STEPS`` (every slot
+    streaming a prompt) run under the profiler and are left out of the
+    step times, and of the wall time all but the traced steps' own wall
+    time. Returns the requests and the arm's record."""
+    engine = ServeEngine(model, params, batch_slots=4, max_len=128)
+    if eager:
+        engine._step = model.decode_step
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        engine.submit(r)
+    times, prof, first_admit = [], None, None
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    while engine.queue or any(r is not None for r in engine.slots):
+        if len(times) == PROFILED_STEPS[0] and prof is None:
+            tp = time.perf_counter()
+            prof = _profile(lambda: [engine.step()
+                                     for _ in range(len(PROFILED_STEPS))])
+            # the profiler's set-up and trace processing are not serving
+            untraced = time.perf_counter() - tp - prof["wall_ms"] / 1e3
+            continue
+        ts = time.perf_counter()
+        engine.step()
+        times.append(time.perf_counter() - ts)
+        if first_admit is None:
+            first_admit = {r.rid for r in reqs if r.admitted_s is not None}
+            require(engine.slots[0] is reqs[0], "request 0 is not in slot 0")
+            held = torch.cuda.memory_allocated() - held
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - untraced
+    del engine
+    require(all(r.done and len(r.out) == 16 for r in reqs),
+            "a request did not finish with 16 tokens")
+    require(all(0 <= t < model.cfg.vocab for r in reqs for t in r.out),
+            "a served token outside the vocab")
+    mid_run = [r.rid for r in reqs if r.rid not in first_admit]
+    require(mid_run, "no request was admitted mid-run")
+    n = len(PROFILED_STEPS)
+    steady = times[1:]
+    return reqs, {
+        "steps": len(times) + n, "wall_s": wall,
+        "requests_per_s": len(reqs) / wall,
+        "tokens_per_s": 16 * len(reqs) / wall,
+        "first_step_s": times[0],
+        "requests_per_s_after_first_step": len(reqs) / (wall - times[0]),
+        "step_ms_p50": statistics.median(steady) * 1e3,
+        "step_ms_max": max(steady) * 1e3,
+        "first_step_mem_held_gb": held / 1e9,
+        "admitted_mid_run": mid_run,
+        "profile_steps": list(PROFILED_STEPS),
+        "idle_share": prof["idle_share"],
+        "device_busy_ms_per_step": prof["device_busy_ms"] / n,
+        "device_ops_per_step": prof["device_ops"] / n,
+        "host_launches_per_step": prof["host_launches"] / n,
+        "wall_ms_per_profiled_step": prof["wall_ms"] / n}
+
+
+def witness_fits(cfg, params, n_layers: int | None, in_place: bool) -> dict:
+    """Whether the fp32 witness can be built, reckoned before building it:
+    beside the bf16 weights, its fp32 weights must fit in what is free;
+    ``in_place``, its fp32 weights plus the largest bf16 leaf (the peak of
+    the leaf-by-leaf cast) must fit in what is free plus the bf16 weights
+    it consumes (free: the card's, and what the allocator holds unused).
+    Both within ``WITNESS_HEADROOM`` of the card, for the allocator's
+    fragmentation among leaves of several GB."""
+    m32 = Model(dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers))
+    sizes = [math.prod(sh) for sub in m32.param_shapes().values()
+             for sh in (sub.values() if isinstance(sub, dict) else [sub])]
+    bf16 = sum(t.numel() * t.element_size() for g in params.values()
+               for t in (g.values() if isinstance(g, dict) else [g]))
+    free, total = torch.cuda.mem_get_info()
+    free += torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    need = 4 * sum(sizes) + (2 * max(sizes) if in_place else 0)
+    room = free + (bf16 if in_place else 0) - (1 - WITNESS_HEADROOM) * total
+    return {"fits": need <= room, "need_gb": need / 1e9,
+            "room_gb": room / 1e9, "card_gb": total / 1e9}
+
+
 def phase_serve(gen, cfg, model, params, witness_layers=None,
                 in_place=False) -> None:
-    """Six requests through four slots. Request 0 must get the tokens it
-    gets served alone by an engine of the same four slots: in bf16 the
-    different rounding of cuBLAS's M=1 and M=4 GEMMs turns into other
-    greedy tokens within a few steps (on zamba2, and on phi3 and gemma3
-    for some prompts), so a 1-slot solo run is only logged, while
-    with four slots in both runs lane 0's rows meet the same kernels and
-    only a leak from the other lanes' admissions and resets can change its
-    tokens. An fp32 witness, where that rounding is 2^16 times finer, must
-    give equal tokens served alone by one and by four slots, so that a
-    fault of one slot alone cannot hide behind the rounding. It runs at
-    full width and, where fp32 weights of every layer do not fit beside
-    the bf16 ones, over the first ``witness_layers`` layers: the one cut
-    of this phase (phi3: 4 of 40 layers; gemma3: one superblock, 6 of 48;
-    zamba2, kimi and whisper: every layer; arctic: layer 0, built
-    ``in_place`` of the bf16 weights after the bf16 gates, so ``params``
-    is consumed; internvl2: 4 of 48).
+    """Six requests through four slots, by the captured step and again
+    eagerly: every request's tokens must be equal in the two arms (the
+    replay runs the eager step's kernels on the same addresses), through
+    the mid-run admissions and lane resets. Request 0 must get the tokens
+    it gets served alone by an engine of the same four slots, captured and
+    eager alike: in bf16 the different rounding of cuBLAS's M=1 and M=4
+    GEMMs turns into other greedy tokens within a few steps (on zamba2,
+    and on phi3 and gemma3 for some prompts), so a 1-slot solo run is
+    only logged, while with four slots in both runs lane 0's rows meet the
+    same kernels and only a leak from the other lanes' admissions and
+    resets can change its tokens. An fp32 witness, where that rounding is
+    2^16 times finer, must give equal tokens served alone by one and by
+    four slots, and its eager 4-slot run the same, so that a fault of one
+    slot alone cannot hide behind the rounding. It runs at full width and,
+    where fp32 weights of every layer do not fit beside the bf16 ones,
+    over the first ``witness_layers`` layers: the one cut of this phase
+    (phi3: 4 of 40 layers; gemma3: one superblock, 6 of 48; zamba2,
+    mamba2 and whisper: every layer; arctic: layer 0, built ``in_place`` of the bf16
+    weights after the bf16 gates, so ``params`` is consumed; internvl2: 4
+    of 48). Where even that does not fit (``witness_fits``: kimi-k2's one
+    layer is 72.8 GB in fp32, and its largest bf16 leaf 11.3 GB), there is
+    no witness, and the reckoning is logged.
 
     Request 0 is admitted to slot 0 (the first free slot) in every run.
     In a MoE layer a decode step's tokens share each expert's capacity of
@@ -847,28 +998,12 @@ def phase_serve(gen, cfg, model, params, witness_layers=None,
     lens = torch.randint(32, 65, (6,), generator=gen, device=DEVICE).tolist()
     prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen,
                              device=DEVICE).tolist() for n in lens]
-    engine = ServeEngine(model, params, batch_slots=4, max_len=128)
-    reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
-            for i, p in enumerate(prompts)]
-    for r in reqs:
-        engine.submit(r)
-    steps = 0
-    first_admit = None
-    t0 = time.perf_counter()
-    while engine.queue or any(r is not None for r in engine.slots):
-        engine.step()
-        steps += 1
-        if first_admit is None:
-            first_admit = {r.rid for r in reqs if r.admitted_s is not None}
-            require(engine.slots[0] is reqs[0], "request 0 is not in slot 0")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    require(all(r.done and len(r.out) == 16 for r in reqs),
-            "a request did not finish with 16 tokens")
-    require(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
-            "a served token outside the vocab")
-    mid_run = [r.rid for r in reqs if r.rid not in first_admit]
-    require(mid_run, "no request was admitted mid-run")
+    reqs, captured = serve_run(model, params, prompts, eager=False)
+    eager_reqs, eager = serve_run(model, params, prompts, eager=True)
+    for r, e in zip(reqs, eager_reqs):
+        require(r.out == e.out,
+                f"{cfg.name}: request {r.rid}'s captured tokens differ from "
+                f"the eager engine's from token {first_diff(r.out, e.out)}")
 
     extra = {}
     one = solo_tokens(model, params, prompts[0], 1)
@@ -879,32 +1014,49 @@ def phase_serve(gen, cfg, model, params, witness_layers=None,
             f"the first request's tokens differ from its solo run "
             f"({solo_slots} slots) from token "
             f"{first_diff(solo, reqs[0].out)}")
+    solo_eager = solo_tokens(model, params, prompts[0], solo_slots,
+                             eager=True)
+    require(solo_eager == solo,
+            f"{cfg.name}: request 0's captured solo run differs from the "
+            f"eager one from token {first_diff(solo, solo_eager)}")
     torch.cuda.reset_peak_memory_stats()
-    m32, p32 = fp32_witness(cfg, params, witness_layers, in_place)
-    extra["fp32_witness_build_peak_mem_gb"] = \
-        torch.cuda.max_memory_allocated() / 1e9
-    one32, four32 = (solo_tokens(m32, p32, prompts[0], n)
-                     for n in (1, solo_slots))
-    del p32
-    extra["fp32_witness_layers"] = m32.cfg.n_layers
-    extra["fp32_one_slot_solo_first_diff"] = first_diff(one32, four32)
-    extra["fp32_solo_tokens"] = four32
-    require(one32 == four32,
-            f"fp32 witness ({m32.cfg.n_layers} of {cfg.n_layers} layers): "
-            f"solo runs with 1 and {solo_slots} slots part at token "
-            f"{extra['fp32_one_slot_solo_first_diff']}")
+    fit = witness_fits(cfg, params, witness_layers, in_place)
+    extra["fp32_witness_reckoning"] = fit
+    if fit["fits"]:
+        m32, p32 = fp32_witness(cfg, params, witness_layers, in_place)
+        extra["fp32_witness_build_peak_mem_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        one32, four32, eager32 = (
+            solo_tokens(m32, p32, prompts[0], n, eager=e)
+            for n, e in ((1, False), (solo_slots, False),
+                         (solo_slots, True)))
+        del p32
+        extra["fp32_witness_layers"] = m32.cfg.n_layers
+        extra["fp32_one_slot_solo_first_diff"] = first_diff(one32, four32)
+        extra["fp32_solo_tokens"] = four32
+        require(one32 == four32,
+                f"fp32 witness ({m32.cfg.n_layers} of {cfg.n_layers} "
+                f"layers): solo runs with 1 and {solo_slots} slots part at "
+                f"token {extra['fp32_one_slot_solo_first_diff']}")
+        require(eager32 == four32,
+                f"fp32 witness: the captured {solo_slots}-slot solo run "
+                f"differs from the eager one from token "
+                f"{first_diff(four32, eager32)}")
+    else:
+        extra["fp32_witness_layers"] = 0
     log(phase="serve", arch=cfg.name, requests=len(reqs), prompt_lens=lens,
-        steps=steps,
-        wall_s=wall, requests_per_s=len(reqs) / wall,
-        tokens_per_s=16 * len(reqs) / wall, admitted_mid_run=mid_run,
-        first_request_equals_solo=True, solo_slots=solo_slots, **extra)
+        captured=captured, eager=eager, captured_equals_eager=True,
+        first_request_equals_solo=True, solo_slots=solo_slots,
+        solo_captured_equals_eager=True, **extra)
 
 
 def _profile(fn) -> dict:
     """Device time of ``fn`` from a torch.profiler trace: the union of the
     CUDA activity intervals against the host's wall time (the profiler's
-    own host overhead is in the wall time), and the top kernels by
-    device time."""
+    own host overhead is in the wall time), the top kernels by device
+    time, and the host's launches (CUDA API calls that launch a kernel, a
+    copy, a fill or a graph): a graph's kernels show on the device one by
+    one, but cost the host one launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -926,8 +1078,12 @@ def _profile(fn) -> dict:
         reach = max(reach, end)
         by_name[name[:100]] = by_name.get(name[:100], 0.0) + end - start
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    launches = sum(1 for e in prof.events()
+                   if e.device_type == DeviceType.CPU
+                   and HOST_LAUNCH.match(e.name))
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / wall_us, "device_ops": len(spans),
+            "host_launches": launches,
             "top_ms": [[name, t / 1e3] for name, t in top]}
 
 
@@ -935,7 +1091,10 @@ def phase_profile(gen, cfg, model, params, b: int, s: int,
                   extra: dict | None = None, cache_len: int = CACHE_LEN
                   ) -> None:
     """One prefill of ``b`` x ``s`` random tokens (plus ``extra`` inputs,
-    an encoder-decoder's frames) and four decode steps, each traced."""
+    an encoder-decoder's frames), four eager decode steps and then four
+    replays of the same step captured as a CUDA graph (the serving
+    engine's ``CapturedStep``; its capture, with its warm-up, is timed
+    apart), each traced."""
     batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
                                      device=DEVICE), **(extra or {})}
     out = {}
@@ -945,15 +1104,30 @@ def phase_profile(gen, cfg, model, params, b: int, s: int,
     tok = embedloss.greedy(last, params["embed"], valid_vocab=cfg.vocab)
     decode = _profile(lambda: [model.decode_step(params, cache, tok)
                                for _ in range(4)])
+    step = CapturedStep(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["tok"] = step(params, cache, tok)[0]
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+
+    def replays():
+        for _ in range(4):
+            out["tok"] = step(params, cache, out["tok"])[0]
+
+    captured = _profile(replays)
+    del step
     log(phase="profile", arch=cfg.name, prefill=prefill,
-        decode_4_steps=decode)
+        decode_4_steps=decode, decode_4_steps_captured=captured,
+        capture_and_first_step_s=capture_s)
 
 
-def governed_arm(model, params, governed: bool, tracer=None):
+def governed_arm(model, params, governed: bool, tracer=None,
+                 eager: bool = False):
     """One arm of ``examples/serve_pipeline.py``'s scenario: a 4-slot
     engine on a sim clock with deadline-safe admission over the governor's
     frontier, paced by the governor (``governed``) or pinned at
-    max-performance."""
+    max-performance; on the card by the captured step, or ``eager``ly."""
     preset = serving_preset(GOV_PLATFORM)
     gov = Governor(preset["chain"], preset["b"], preset["l"],
                    preset["power"], preset["budget"],
@@ -964,6 +1138,8 @@ def governed_arm(model, params, governed: bool, tracer=None):
     engine = ServeEngine(model, params, batch_slots=4, max_len=64,
                          clock=SimClock(), planner=planner, pace="fixed",
                          tracer=tracer, metrics=MetricsRegistry())
+    if eager:
+        engine._step = model.decode_step
     arrivals = bursty_arrivals(GOV_WINDOWS, base_rate=1, burst_rate=4,
                                burst_windows=(3, 4), latency_slo_s=0.5)
     res = run_serve_scenario(
@@ -1005,18 +1181,23 @@ def phase_governed_serve(cfg, model, params) -> None:
     card's decisions must equal a CPU replay's with the stablelm-3b smoke
     model, asked for with ``device="cpu"``. The joules are modelled (the
     DVB-S2 ``mac`` power model's watts times the simulated step time), not
-    measured on the card. Draws nothing from the run's generators."""
+    measured on the card. Both arms run by the captured step; the governed
+    arm runs once more eagerly, and its decisions and tokens must equal
+    the captured run's. Logs the card's wall ms per engine step beside the
+    plan's simulated step, captured and eager. Draws nothing from the
+    run's generators."""
     replay = Model(get_smoke_config(GOV_REPLAY_ARCH))
     replay_params = replay.init(SEED, device="cpu")
     reset_launches()
     out = {}
-    for governed in (True, False):
-        arm = "governed" if governed else "max_perf"
+    for governed, eager in ((True, False), (False, False), (True, True)):
+        arm = ("governed" if governed else "max_perf") + \
+            ("_eager" if eager else "")
         tracer = Tracer()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         preset, arrivals, engine, res = governed_arm(model, params, governed,
-                                                     tracer)
+                                                     tracer, eager)
         wall = time.perf_counter() - t0
         ref = governed_arm(replay, replay_params, governed)[3]
         require(decisions(res) == decisions(ref),
@@ -1031,11 +1212,13 @@ def phase_governed_serve(cfg, model, params) -> None:
                         and all(0 <= t < cfg.vocab for t in r.out),
                         f"governed serve ({arm}): request {r.rid} has "
                         f"tokens {r.out}")
-        walls = sorted(e.dur * 1e3 for e in tracer.drain()
-                       if e.ph == "X" and e.name == "serve/step")
+        spans = [e.dur * 1e3 for e in tracer.drain()
+                 if e.ph == "X" and e.name == "serve/step"]
+        walls = sorted(spans)
         planned = engine.metrics.snapshot()["histograms"]["serve/step_s"]
         log(phase="governed_serve", arch=cfg.name, arm=arm,
-            engine_steps=len(walls),
+            step="eager" if eager else "captured",
+            engine_steps=len(walls), first_step_ms=spans[0],
             wall_ms_per_step_p50=statistics.median(walls),
             wall_ms_per_step_p99=walls[max(0, math.ceil(0.99 * len(walls))
                                            - 1)],
@@ -1055,6 +1238,11 @@ def phase_governed_serve(cfg, model, params) -> None:
             decisions_equal_cpu_replay=True, replay_arch=GOV_REPLAY_ARCH)
         out[arm] = res
     gov, maxp = out["governed"], out["max_perf"]
+    require(decisions(out["governed_eager"]) == decisions(gov)
+            and [r.out for r in out["governed_eager"].requests]
+            == [r.out for r in gov.requests],
+            "governed serve: the eager arm's decisions or tokens differ "
+            "from the captured arm's")
     require(gov.completed == len(arrivals),
             f"governed serve: {gov.completed} of {len(arrivals)} requests "
             f"completed")
@@ -1075,6 +1263,7 @@ def phase_governed_serve(cfg, model, params) -> None:
                 f"its 4-slot solo run from token "
                 f"{first_diff(solo, res.requests[0].out)}")
     log(phase="governed_serve", arch=cfg.name, launches=launch_counts(),
+        governed_captured_equals_eager=True,
         modelled_joules_per_token_saved=1 - gov.joules_per_token
         / maxp.joules_per_token,
         first_request_equals_solo=True, solo_slots=4)
@@ -2361,9 +2550,11 @@ def main() -> int:
     cfg, model, params, cache, last = phase_prefill(gen, fa_rec)
     phase_decode(cfg, model, params, cache, last, PHI3_ATTN[3])
     del cache
-    phase_serve(gen, cfg, model, params, witness_layers=PHI3_WITNESS_LAYERS)
+    peak_mem(cfg.name, "serve", phase_serve, gen, cfg, model, params,
+             witness_layers=PHI3_WITNESS_LAYERS)
     phase_profile(gen, cfg, model, params, PHI3_ATTN[0], PHI3_ATTN[3])
-    phase_governed_serve(cfg, model, params)
+    peak_mem(cfg.name, "governed_serve", phase_governed_serve, cfg, model,
+             params)
     held = torch.cuda.memory_allocated()
     del cfg, model, params, last
     gc.collect()
@@ -2377,7 +2568,7 @@ def main() -> int:
         gen, fa_rec, ca_rec, ssd_rec)
     phase_decode(cfg, model, params, cache, last, ZAMBA_ATTN[3])
     del cache
-    phase_serve(gen, cfg, model, params)
+    peak_mem(cfg.name, "serve", phase_serve, gen, cfg, model, params)
     phase_profile(gen, cfg, model, params, ZAMBA_ATTN[0], ZAMBA_ATTN[3])
     held = torch.cuda.memory_allocated()
     del cfg, model, params, last
@@ -2386,12 +2577,22 @@ def main() -> int:
     log(phase="free", arch="zamba2-7b", held_gb=held / 1e9,
         after_gb=torch.cuda.memory_allocated() / 1e9)
 
+    # the ssm family, whole: its decode step captured and served; prompts
+    # from ``added``, so the phases after it see the data they saw before
+    cfg = get_config("mamba2-1.3b")
+    model = Model(cfg)
+    params = model.init(seed=SEED, device=DEVICE)
+    peak_mem(cfg.name, "serve", phase_serve, added, cfg, model, params)
+    del cfg, model, params
+    free_model("mamba2-1.3b")
+
     phase_gemma_kernels(gen, peaks, fa_rec, ca_rec, usage)
     cfg, model, params, cache, last, tokens = phase_gemma_prefill(
         gen, fa_rec, ca_rec)
     phase_gemma_decode(cfg, model, params, cache, last, tokens)
     del cache
-    phase_serve(gen, cfg, model, params, witness_layers=GEMMA_WITNESS_LAYERS)
+    peak_mem(cfg.name, "serve", phase_serve, gen, cfg, model, params,
+             witness_layers=GEMMA_WITNESS_LAYERS)
     phase_profile(gen, cfg, model, params, GEMMA_ATTN[0], GEMMA_ATTN[3])
     del cfg, model, params, last, tokens
     free_model("gemma3-12b")
@@ -2404,8 +2605,8 @@ def main() -> int:
     phase_decode_kv(cfg, model, params, cache, last, batch)
     del cache, last, batch
     phase_profile(gen, cfg, model, params, *MOE_VLM_ATTN[cfg.name][::3])
-    phase_serve(gen, cfg, model, params,
-                witness_layers=ARCTIC_WITNESS_LAYERS, in_place=True)
+    peak_mem(cfg.name, "serve", phase_serve, gen, cfg, model, params,
+             witness_layers=ARCTIC_WITNESS_LAYERS, in_place=True)
     del cfg, model, params
     free_model("arctic-480b")
 
@@ -2414,7 +2615,12 @@ def main() -> int:
     cache, last, batch = phase_moe_vlm_prefill(gen, cfg, model, params, info,
                                                fa_rec, ca_rec)
     phase_decode_kv(cfg, model, params, cache, last, batch)
-    del cfg, model, params, cache, last, batch
+    del cache, last, batch
+    # its prompts come from ``added``: the phases after it see the data
+    # they saw before it was added
+    peak_mem(cfg.name, "serve", phase_serve, added, cfg, model, params,
+             in_place=True)
+    del cfg, model, params
     free_model("kimi-k2-1t-a32b")
 
     cfg, model, params, info = init_model("internvl2-26b")
@@ -2422,7 +2628,8 @@ def main() -> int:
                                                fa_rec, ca_rec)
     phase_decode(cfg, model, params, cache, last, MOE_VLM_ATTN[cfg.name][3])
     del cache, last, batch
-    phase_serve(gen, cfg, model, params, witness_layers=VLM_WITNESS_LAYERS)
+    peak_mem(cfg.name, "serve", phase_serve, gen, cfg, model, params,
+             witness_layers=VLM_WITNESS_LAYERS)
     phase_profile(gen, cfg, model, params, *MOE_VLM_ATTN[cfg.name][::3])
     del cfg, model, params
     free_model("internvl2-26b")

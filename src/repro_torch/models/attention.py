@@ -25,6 +25,7 @@ import math
 import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models.layers import fused_f32, matmul_f32
 
 _NEG = -1e30
 IMPLS = ("kernel", "chunked", "xla_flash", "naive")
@@ -162,28 +163,93 @@ def attend(q, k, v, *, causal=True, window=0, impl="xla_flash",
 
 
 # ------------------------------------------------------------------ decode
+def split3_bf16(p: torch.Tensor) -> torch.Tensor:
+    """fp32 ``p`` as three bf16 terms stacked on a new dim 1, hi + mid +
+    lo == p exactly: each term takes the next 8 significant bits of the
+    remainder (fp32's 24 in all; a term of |p| < 2^-110 may underflow)."""
+    hi = p.to(torch.bfloat16)
+    rest = p - hi.float()
+    mid = rest.to(torch.bfloat16)
+    lo = (rest - mid.float()).to(torch.bfloat16)
+    return torch.stack([hi, mid, lo], dim=1)
+
+
+def scores_blockdiag(q, k_cache):
+    """q·Kᵀ of every lane and head as one product batched over the lanes:
+    q (B, Hq, D), k_cache (B, S, Hkv, D) -> (B, Hkv, G, S) fp32. Query
+    row (h, g) sits in columns h·D..(h+1)·D of an otherwise zero
+    (Hq, Hkv·D) matrix, so each lane's product with its cache rows
+    (S, Hkv·D), read once as they lie, sums q[h, g]·k[s, h] and exact
+    zeros; no copy of the cache is made. The head pairs h ≠ h' cost only
+    tensor-core work: with at most 3·Hq = 192 rows (kimi-k2's p·V) a
+    product does under 2·192 operations per 2-byte cache element, below
+    the H100's 295 bf16 operations per byte of HBM, so it stays bound by
+    the cache's bytes."""
+    b, hq, d = q.shape
+    skv, n_kv = k_cache.shape[1], k_cache.shape[2]
+    g = hq // n_kv
+    qbd = q.new_zeros((b, n_kv, g, n_kv, d))
+    qbd.diagonal(dim1=1, dim2=3).copy_(
+        q.reshape(b, n_kv, g, d).permute(0, 2, 3, 1))
+    s = matmul_f32(qbd.view(b, hq, n_kv * d),
+                   k_cache.reshape(b, skv, n_kv * d).transpose(1, 2))
+    return s.view(b, n_kv, g, skv)
+
+
+def pv_blockdiag(p, v_cache):
+    """p·V batched over the lanes: p (B, Hkv, G, S) fp32, v_cache
+    (B, S, Hkv, D) -> (B, Hkv, G, D) fp32. ``p`` is split into
+    three bf16 terms (:func:`split3_bf16`) stacked as rows, so every
+    product is of two bf16 values, exact in fp32; each lane's rows meet
+    its cache rows (S, Hkv·D) read once, and the diagonal blocks (h = h')
+    of the three terms are summed."""
+    b, n_kv, g, skv = p.shape
+    d = v_cache.shape[-1]
+    parts = split3_bf16(p).view(b, 3 * n_kv * g, skv)
+    o = matmul_f32(parts, v_cache.reshape(b, skv, n_kv * d))
+    o = o.view(b, 3, n_kv, g, n_kv, d).diagonal(dim1=2, dim2=4).sum(dim=1)
+    return o.permute(0, 3, 1, 2)
+
+
 def decode_attention_local(q, k_cache, v_cache, *, pos, window=0,
                            kv_offset=0):
     """Single-token attention over a cache: q (B, Hq, D), cache
     (B, S, Hkv, D), ``pos`` = current absolute position — an int, or a
     (B,) tensor of per-slot positions (continuous batching: each lane
-    masks against its own progress). Returns (o, m, l)."""
+    masks against its own progress). Returns (o, m, l).
+
+    The scores and the output are fp32 sums of the products of q (or p)
+    and the cache, as the reference's ``astype(f32)`` einsums. On CUDA in
+    bf16 both products are :func:`scores_blockdiag` and
+    :func:`pv_blockdiag`, which read the bf16 cache as it lies, where the
+    widened einsums would write an fp32 copy of it each step; elsewhere
+    the einsums. An int ``pos`` (a cross layer's S - 1) enters the mask as
+    a kernel argument, and the masked entries are filled with scalars
+    (``masked_fill``), so no tensor is made from host data and the step
+    can be captured as a CUDA graph."""
     b, hq, d = q.shape
     skv, n_kv = k_cache.shape[1], k_cache.shape[2]
-    qg = q.reshape(b, n_kv, hq // n_kv, d).float()
     scale = 1.0 / math.sqrt(d)
-    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) * scale
+    fused = fused_f32(q, k_cache, v_cache)
+    if fused:
+        s = scores_blockdiag(q, k_cache) * scale
+    else:
+        qg = q.reshape(b, n_kv, hq // n_kv, d).float()
+        s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) * scale
     kv_pos = kv_offset + torch.arange(skv, device=q.device)
-    pos_b = torch.as_tensor(pos, device=q.device).expand(b)
-    msk = kv_pos[None, :] <= pos_b[:, None]                 # (B, Skv)
+    pos_b = pos.expand(b)[:, None] if isinstance(pos, torch.Tensor) else pos
+    hide = kv_pos[None, :] > pos_b                  # (B or 1, Skv)
     if window > 0:
-        msk &= kv_pos[None, :] > pos_b[:, None] - window
-    msk = msk[:, None, None, :]
-    s = torch.where(msk, s, _NEG)
+        hide |= kv_pos[None, :] <= pos_b - window
+    hide = hide[:, None, None, :]
+    s = s.masked_fill(hide, _NEG)
     m = s.amax(dim=-1)
-    p = torch.where(msk, torch.exp(s - m[..., None]), 0.0)
+    p = torch.exp(s - m[..., None]).masked_fill_(hide, 0.0)
     l = p.sum(dim=-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    if fused:
+        o = pv_blockdiag(p, v_cache)
+    else:
+        o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
     return o / torch.clamp(l, min=1e-30)[..., None], m, l
 
 

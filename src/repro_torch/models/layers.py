@@ -5,6 +5,27 @@ import torch
 import torch.nn.functional as F
 
 
+def fused_f32(*ts: torch.Tensor) -> bool:
+    """Whether products of these operands take :func:`matmul_f32`'s fused
+    path: all bf16 and on CUDA."""
+    return all(t.is_cuda and t.dtype == torch.bfloat16 for t in ts)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a.float() @ b.float()`` for 2-D operands, or 3-D ones batched
+    along dim 0. For two bf16 operands on CUDA, cuBLAS's product with fp32
+    accumulation and fp32 output (``out_dtype``), as XLA fuses the
+    reference's ``astype(f32)`` casts into its dots: each product of two
+    bf16 values is exact in fp32, so only the order of the fp32 sums
+    differs, and no widened copy of either operand is written. Otherwise
+    (the CPU, fp32) the widened product; ``.float()`` of an fp32 tensor is
+    the tensor itself."""
+    if fused_f32(a, b):
+        mm = torch.bmm if a.dim() == 3 else torch.mm
+        return mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
              ) -> torch.Tensor:
     """RMSNorm in fp32 with a zero-centred scale: ``x / rms(x) * (1 + scale)``."""

@@ -62,8 +62,8 @@ def _dispatch_indices(experts: torch.Tensor, n_experts: int,
     ranks = torch.empty_like(flat_e).scatter_(
         0, order, torch.arange(t * k, device=flat_e.device,
                                dtype=flat_e.dtype) - starts[sorted_e])
-    slot = torch.where(ranks < capacity, flat_e * capacity + ranks,
-                       n_experts * capacity)
+    slot = (flat_e * capacity + ranks).masked_fill_(ranks >= capacity,
+                                                    n_experts * capacity)
     return slot.reshape(t, k)
 
 

@@ -545,17 +545,20 @@ class Model(nn.Module):
             ax["v_shared"] = kv
         return ax
 
-    def reset_cache_lane(self, cache, slot: int):
+    def reset_cache_lane(self, cache, slot):
         """Zero one batch lane of a decode cache in place (``pos[slot] = 0``
         and every leaf's ``slot`` row along its batch axis): what
         :meth:`init_cache` would have produced for that lane. Attention
         masks already hide K/V past a lane's position, but the SSM conv and
         state leaves carry history unconditionally, so every leaf is
         wiped, an encoder-decoder's cross K/V included (as the
-        reference's)."""
+        reference's). ``slot`` is an int, or a (1,) int64 index tensor on
+        the cache's device, which spares the call its one host-to-device
+        copy (the serving engine makes one per slot up front)."""
         axes = self.cache_axes()
+        idx = slot if isinstance(slot, torch.Tensor) else torch.tensor(
+            [slot], device=cache["pos"].device)
         for key, val in cache.items():
-            idx = torch.tensor([slot], device=val.device)
             val.index_fill_(axes[key].index("batch"), idx, 0)
         return cache
 

@@ -8,8 +8,19 @@ admitted mid-run by resetting only the freed slot's cache lane
 admitted request's tokens are the ones it would get served alone. Prompts
 stream in token by token through the same ``decode_step``
 (prefill-as-decode); completed slots free up and re-admit from the
-arrival queue every step. Greedy sampling. The cache is updated in place
-(the reference donates it to a jitted step).
+arrival queue every step, or with ``admit_mode="step0"`` only once every
+slot has drained. Greedy sampling.
+
+The step: the reference jits ``decode_step`` with the cache donated, so
+one engine step is one launch of one compiled program. Here, when the
+cache lives on a CUDA device, ``_step`` is a
+:class:`~repro_torch.serve.graph.CapturedStep`: ``decode_step`` captured
+once over the engine's preallocated cache as one CUDA graph and replayed
+every step, and ``_reset_lane`` zeroes a lane with index tensors made at
+init. On the CPU both are the model's bound methods, run eagerly. The
+cache is updated in place on both. A caller that wants the eager step on
+CUDA sets ``engine._step = model.decode_step`` (what ``jax.disable_jit()``
+does for the reference).
 
 Deadline-safe admission (optional): give the engine an
 :class:`~repro_torch.serve.slo.AdmissionPlanner` and per-request
@@ -43,11 +54,11 @@ import time
 from collections import deque
 from typing import Optional
 
-import numpy as np
 import torch
 
 from repro_torch.models.transformer import Model
 
+from .graph import CapturedStep
 from .slo import AdmissionPlanner, step_need_s
 
 
@@ -91,8 +102,11 @@ class ServeEngine:
                  max_len: int = 256, tracer=None, metrics=None,
                  clock: SimClock | None = None,
                  planner: AdmissionPlanner | None = None,
+                 admit_mode: str = "continuous",
                  pace: str = "planner",
                  step_time_s: float | None = None):
+        if admit_mode not in ("continuous", "step0"):
+            raise ValueError(f"unknown admit_mode {admit_mode!r}")
         if pace not in ("planner", "fixed"):
             raise ValueError(f"unknown pace {pace!r}")
         self.model = model
@@ -104,6 +118,7 @@ class ServeEngine:
         self.metrics = metrics
         self.clock = clock
         self.planner = planner
+        self.admit_mode = admit_mode
         self.pace = pace
         # sim-clock seconds per step; under pace="planner" it follows the
         # admission plan, under pace="fixed" the outer loop sets it
@@ -118,6 +133,21 @@ class ServeEngine:
         self.slots: list[Optional[Request]] = [None] * batch_slots
         # per-slot prompt tokens still to stream through decode
         self._pending: list[list[int]] = [[] for _ in range(batch_slots)]
+        # the step's tokens on the host, pinned on CUDA so that the copy to
+        # the device is asynchronous (the step's ``.cpu()`` orders it)
+        cuda = self.device.type == "cuda"
+        self._tokens = torch.zeros((batch_slots,), dtype=torch.int32,
+                                   pin_memory=cuda)
+        if cuda:
+            # the reference's jitted, cache-donating step: one CUDA graph
+            # replay a step, and a lane reset by index tensors made here
+            self._step = CapturedStep(model)
+            lanes = torch.arange(batch_slots, device=self.device)[:, None]
+            self._reset_lane = lambda cache, slot: model.reset_cache_lane(
+                cache, lanes[slot])
+        else:
+            self._step = model.decode_step
+            self._reset_lane = model.reset_cache_lane
 
     # ------------------------------------------------------------- clocking
     def now(self) -> float:
@@ -160,15 +190,17 @@ class ServeEngine:
                                      extra.total_steps, safety))
         return needs
 
-    def min_step_need_s(self) -> float:
-        """The tightest admissible step latency over every admitted and
-        queued deadline: what the serving scenario feeds the governor as
-        ``Observation.need_period``."""
+    def min_step_need_s(self, include_queued: bool = True) -> float:
+        """The tightest admissible step latency over every admitted (and,
+        with ``include_queued``, every queued) deadline: what the serving
+        scenario feeds the governor as ``Observation.need_period``."""
         now = self.now()
-        safety = self.planner.safety if self.planner is not None else 1.0
         needs = self._needs(now)
-        needs += [step_need_s(req.deadline_s, now, req.total_steps, safety)
-                  for req in self.queue if req.deadline_s is not None]
+        if include_queued:
+            safety = self.planner.safety if self.planner is not None else 1.0
+            needs += [step_need_s(req.deadline_s, now, req.total_steps,
+                                  safety)
+                      for req in self.queue if req.deadline_s is not None]
         return min(needs) if needs else math.inf
 
     def _reject(self, req: Request) -> None:
@@ -216,6 +248,9 @@ class ServeEngine:
         return now + req.total_steps * best > req.deadline_s + 1e-12
 
     def _admit(self) -> None:
+        if self.admit_mode == "step0" and \
+                any(s is not None for s in self.slots):
+            return          # batch mode: refill only when every slot drained
         now = self.now()
         free = [i for i, s in enumerate(self.slots) if s is None]
         if not free:
@@ -233,7 +268,7 @@ class ServeEngine:
                 kept.append(req)
                 continue
             i = free.pop(0)
-            self.model.reset_cache_lane(self.cache, i)
+            self.cache = self._reset_lane(self.cache, i)
             self.slots[i] = req
             self._pending[i] = list(req.prompt)
             req.admitted_s = now
@@ -246,7 +281,8 @@ class ServeEngine:
         t0 = time.perf_counter()
         self._admit()
         active = sum(1 for s in self.slots if s is not None)
-        tokens = np.zeros((self.B,), np.int32)
+        tokens = self._tokens.numpy()
+        tokens[:] = 0
         for i, req in enumerate(self.slots):
             if req is None:
                 continue
@@ -256,8 +292,9 @@ class ServeEngine:
                 tokens[i] = req.out[-1]
             else:
                 tokens[i] = req.prompt[-1]
-        nxt, self.cache = self.model.decode_step(
-            self.params, self.cache, torch.from_numpy(tokens).to(self.device))
+        nxt, self.cache = self._step(
+            self.params, self.cache,
+            self._tokens.to(self.device, non_blocking=True))
         nxt = nxt.cpu().numpy()
         t1 = time.perf_counter()
         if self.clock is not None:

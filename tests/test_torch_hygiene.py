@@ -4,9 +4,10 @@ The port (``src/repro_torch``) and ``chip_smoke.py`` import nothing of JAX
 or of the JAX package, call no library attention (``chip_smoke.py`` times
 one call as its yardstick, in ``library_ms`` only) and no
 ``torch.compile``, and never fall back: on a host with no CUDA the entry
-points raise unless asked for the CPU, and the kernel wrappers (flash,
+points raise unless asked for the CPU, the kernel wrappers (flash,
 chunked, SSD) raise on any tensor they cannot launch on instead of running
-the plain version."""
+the plain version, and the serving engine's captured step raises instead
+of running eagerly."""
 import ast
 from pathlib import Path
 
@@ -63,7 +64,13 @@ def test_no_library_attention_or_compile():
 
 
 def test_kernel_path_has_no_try_fallback():
-    for path in (PORT / "kernels").rglob("*.py"):
+    """No ``try`` in the kernel wrappers, nor in the serving engine, whose
+    CUDA graph capture and replay raise on failure instead of dropping back
+    to the eager step."""
+    paths = sorted((PORT / "kernels").rglob("*.py")) + sorted(
+        (PORT / "serve").rglob("*.py"))
+    assert PORT / "serve" / "graph.py" in paths
+    for path in paths:
         tree = ast.parse(path.read_text(), str(path))
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), path
 

@@ -186,3 +186,93 @@ def test_engine_emits_trace_and_metrics():
     assert metrics.counter("serve/requests_done") == 2
     hist = metrics.snapshot()["histograms"]["serve/step_s"]
     assert hist["count"] == len(steps) and hist["p99"] > 0
+
+
+def _sched_perf_specs():
+    """``benchmarks/sched_perf.py``'s serve arm: 16 requests of 2-4 prompt
+    tokens and 4-16 new tokens, drawn from seed 11 in its order."""
+    rng = np.random.default_rng(11)
+    return [([1] * int(rng.integers(2, 5)), int(rng.integers(4, 17)))
+            for _ in range(16)]
+
+
+def _steps_and_tokens(engine_cls, req_cls, model, params, admit_mode):
+    engine = engine_cls(model, params, batch_slots=4, max_len=64,
+                        admit_mode=admit_mode)
+    reqs = [req_cls(rid=i, prompt=p, max_new_tokens=n)
+            for i, (p, n) in enumerate(_sched_perf_specs())]
+    for r in reqs:
+        engine.submit(r)
+    steps = 0
+    while engine.queue or any(s is not None for s in engine.slots):
+        engine.step()
+        steps += 1
+    return steps, [r.out for r in reqs]
+
+
+@pytest.mark.parametrize("admit_mode", ["continuous", "step0"])
+def test_admit_mode_matches_reference(models, admit_mode):
+    """Both admission modes on ``sched_perf``'s 16 requests through 4
+    slots: the port's step count and every request's tokens equal the
+    reference engine's."""
+    jm, jp, tm, tp = models
+    got = _steps_and_tokens(ServeEngine, Request, tm, tp, admit_mode)
+    want = _steps_and_tokens(JaxEngine, JaxRequest, jm, jp, admit_mode)
+    assert got == want
+    assert all(len(out) == n for out, (_, n) in zip(got[1],
+                                                    _sched_perf_specs()))
+
+
+def test_continuous_admission_needs_no_more_steps():
+    """``sched_perf``'s check: refilling freed slots every step drains the
+    queue in fewer steps than refilling only when every slot is empty,
+    with the same tokens (each request's are its solo run's); an unknown
+    mode raises the reference's ValueError, and ``admit_mode`` is the 9th
+    positional parameter in both packages."""
+    import inspect
+
+    tm = Model(get_smoke_config("stablelm-3b"))
+    tp = tm.init(0, device="cpu")
+    cont, cont_out = _steps_and_tokens(ServeEngine, Request, tm, tp,
+                                       "continuous")
+    step0, step0_out = _steps_and_tokens(ServeEngine, Request, tm, tp,
+                                         "step0")
+    assert cont < step0 and cont_out == step0_out
+    with pytest.raises(ValueError, match="admit_mode"):
+        ServeEngine(tm, tp, admit_mode="bogus")
+    assert list(inspect.signature(ServeEngine).parameters) == \
+        list(inspect.signature(JaxEngine).parameters)
+    engine = ServeEngine(tm, tp, 4, 64, None, None, None, None, "step0")
+    assert engine.admit_mode == "step0" and engine.pace == "planner"
+
+
+def test_min_step_need_s_include_queued_matches_reference():
+    """On the sim clock with one slot: the admitted request's deadline and
+    the queued ones' give the reference's values with and without
+    ``include_queued``; a queued deadline tighter than the admitted one
+    sets the minimum only when queued deadlines are included."""
+    jm = JaxModel(jax_smoke("stablelm-3b"))
+    jp = jm.init(0)
+    cfg = get_smoke_config("stablelm-3b")
+    tm = Model(cfg)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+
+    def run(engine_cls, req_cls, clock_cls, model, params):
+        engine = engine_cls(model, params, batch_slots=1, max_len=64,
+                            clock=clock_cls(), step_time_s=0.25)
+        for i, (d, n) in enumerate(((40.0, 6), (9.0, 3), (None, 2),
+                                    (30.0, 5))):
+            engine.submit(req_cls(rid=i, prompt=[3, 1 + i],
+                                  max_new_tokens=n, deadline_s=d))
+        out = [(engine.min_step_need_s(), engine.min_step_need_s(False))]
+        for _ in range(3):
+            engine.step()
+            out.append((engine.min_step_need_s(),
+                        engine.min_step_need_s(include_queued=False)))
+        return out
+
+    got = run(ServeEngine, Request, SimClock, tm, tp)
+    want = run(JaxEngine, JaxRequest, JaxClock, jm, jp)
+    assert got == want
+    assert got[0] == (step_need_s(9.0, 0.0, 4), float("inf"))
+    assert got[1][0] < got[1][1] == step_need_s(40.0, 0.25, 6)
