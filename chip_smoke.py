@@ -65,6 +65,26 @@ Phases, each printing one JSON line:
             governed arm runs once more eagerly and must decide and
             decode the same. Logs the card's wall ms per engine step,
             captured and eager, beside the plan's simulated step.
+  pipeline : the paper's executor on phi3: its 44-task chain (ingest,
+            embed, 40 layers, head, emit; 1 x 2048 tokens a frame)
+            planned by ``plan_pipeline`` with both device classes the
+            card (``H100_CLASS``) and run by ``StreamingPipelineRuntime``
+            with real stage fns (``pipeline/stages.py``). Plan A, one
+            stage on one card, for at least 5 s while ``nvidia-smi``
+            samples the power draw: the samples become a RAPL log that
+            ``parse_rapl_log`` reads and ``attribute_energy`` splits over
+            the trace (energy above 0, mean watts at or below the power
+            limit), logged beside the runtime's and the plan's modelled
+            joules. Plan B, the reference's (2, 2) shape: three stages,
+            the middle one two replicas, each replica on its own stream;
+            last hidden states within 5e-2 of the monolithic prefill's,
+            the device's idle share. Plan C: the two-pass kernel's
+            multiplier fitted from a flash and a two-pass run, registered
+            (``register_family``) and planned by ``variant_herad``. Every
+            frame's token equals its monolithic prefill's, in order, and
+            the flash / two-pass launches are exactly layers x frames of
+            each variant. Logs a bf16 GEMM's and a device copy's rates
+            beside the class's datasheet ones.
 Then phi3's 28 GB are freed and zamba2-7b (Mamba2 + shared attention) runs:
   attention_kernels : the chunked two-pass kernel against
             ``attention_kernel_ref`` on the six reference cases and the
@@ -191,19 +211,25 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import gc
 import itertools
 import json
 import math
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import types
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
@@ -211,8 +237,11 @@ from torch.utils import cpp_extension  # noqa: E402
 
 from repro_torch.configs.dvbs2 import serving_preset  # noqa: E402
 from repro_torch.control import (  # noqa: E402
-    Governor, bursty_arrivals, run_serve_scenario)
-from repro_torch.kernels import build  # noqa: E402
+    Governor, bursty_arrivals, fit_variant_multipliers, observations_from_run,
+    run_serve_scenario, stage_info_from_plan)
+from repro_torch.core.variants import VariantRegistry, VariantSpec  # noqa: E402
+from repro_torch.energy.model import PowerModel  # noqa: E402
+from repro_torch.kernels import build, registry  # noqa: E402
 from repro_torch.kernels.flash_attention import chunked as ca  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_kernel_ref  # noqa: E402
@@ -222,7 +251,13 @@ from repro_torch.models import (  # noqa: E402
     attention, embedloss, layers, moe, ssm, transformer)
 from repro_torch.models.config import get_config, get_smoke_config  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
-from repro_torch.obs import MetricsRegistry, Tracer  # noqa: E402
+from repro_torch.obs import (  # noqa: E402
+    MetricsRegistry, Tracer, attribute_energy, parse_rapl_log,
+    to_chrome_events)
+from repro_torch.pipeline import (  # noqa: E402
+    H100_CLASS, HeterogeneousSystem, StageSpec, StreamingPipelineRuntime,
+    plan_pipeline)
+from repro_torch.pipeline.stages import model_stage_builder  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     AdmissionPlanner, Request, ServeEngine, SimClock)
 from repro_torch.serve.graph import CapturedStep  # noqa: E402
@@ -392,6 +427,24 @@ GOV_WINDOWS = 10
 GOV_INFLATION_AT = ((6, 1.3),)   # steps run 1.3x slower from window 6 on
 GOV_NEW_TOKENS = 8               # bursty_arrivals' max_new_tokens
 GOV_REPLAY_ARCH = "stablelm-3b"
+# the pipeline phase: phi3's 44-task chain (ingest, embed, 40 layers, head,
+# emit) planned by the port's planner with both device classes the card
+# (H100_CLASS: datasheet rates) and run by the port's streaming runtime.
+# Frames are 1 x 2048 tokens, drawn from a pool of PIPE_POOL distinct
+# frames (each held against its monolithic prefill). Plan A (one stage)
+# runs at least PIPE_STEADY_S of frames while nvidia-smi samples the
+# card's power every PIPE_POWER_MS
+PIPE_TOKENS = 2048
+PIPE_POOL = 8
+PIPE_STEADY_S, PIPE_MIN_STEADY_S = 7.0, 5.0
+PIPE_FRAMES_B, PIPE_FRAMES_C, PIPE_FRAMES_FIT = 48, 24, 16
+PIPE_POWER_MS = 100
+# Plan B on (2 big, 2 little), both the card: the reference's planner gives
+# three stages, the middle one two replicas (tests/test_torch_pipeline.py)
+PIPE_B = (2, 2)
+# a bf16 GEMM (M = N = K) and a device-to-device copy (bytes) that time the
+# card's reachable rates beside the class's datasheet ones
+RATE_GEMM, RATE_COPY_BYTES = 8192, 1 << 30
 SEED = 0
 DEVICE = "cuda"
 
@@ -1267,6 +1320,377 @@ def phase_governed_serve(cfg, model, params) -> None:
         modelled_joules_per_token_saved=1 - gov.joules_per_token
         / maxp.joules_per_token,
         first_request_equals_solo=True, solo_slots=4)
+
+
+
+# ================================================================= pipeline
+class PowerSampler:
+    """The card's power draw, ``nvidia-smi ... -lms PIPE_POWER_MS`` in a
+    subprocess for the span of a ``with`` block: ``samples()`` gives
+    (host perf_counter seconds, watts), the card's wall-clock timestamps
+    mapped onto the clock the runtime's trace uses."""
+
+    def __enter__(self):
+        cmd = ["nvidia-smi", "--query-gpu=timestamp,power.draw",
+               "--format=csv,noheader,nounits", "-lms", str(PIPE_POWER_MS)]
+        if shutil.which("stdbuf"):
+            cmd = ["stdbuf", "-oL"] + cmd    # a line a sample, not a block
+        self.offset = time.time() - time.perf_counter()
+        self.lines: list[str] = []
+        self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+        return self
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line)
+
+    def __exit__(self, *exc):
+        self.proc.send_signal(signal.SIGINT)
+        try:
+            self.proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.reader.join(timeout=10)
+        return False
+
+    def samples(self) -> list[tuple[float, float]]:
+        out = []
+        for line in self.lines:
+            if not line.strip():
+                continue
+            stamp, watts = (x.strip() for x in line.split(","))
+            t = datetime.datetime.strptime(
+                stamp, "%Y/%m/%d %H:%M:%S.%f").timestamp() - self.offset
+            out.append((t, float(watts)))
+        return out
+
+
+def rapl_log(samples: list[tuple[float, float]]) -> str:
+    """Power samples integrated (trapezoids) into a RAPL-format log: one
+    cumulative µJ counter of the card, domain ``package``, that does not
+    wrap."""
+    lines = ["# rapl v1", f"# domain package max_energy_uj={1 << 62}"]
+    uj, prev = 0.0, None
+    for t, watts in samples:
+        if prev is not None:
+            if t <= prev[0]:
+                continue
+            uj += (watts + prev[1]) / 2 * (t - prev[0]) * 1e6
+        lines.append(f"{t:.6f} package {int(round(uj))}")
+        prev = (t, watts)
+    return "\n".join(lines) + "\n"
+
+
+def card_power_limit_w() -> float:
+    return float(smi_name_power().rsplit(",", 1)[1].strip().split()[0])
+
+
+def monolithic(cfg, model, params, frame):
+    """One frame (1, S) through ``Model.forward`` on the default stream:
+    its greedy token (host numpy) and last hidden state (host fp32)."""
+    x = model.forward(params, {"tokens": torch.as_tensor(frame,
+                                                         device=DEVICE)})
+    last = x[:, -1]
+    tok = embedloss.greedy(last, params["embed"], valid_vocab=cfg.vocab)
+    return tok.cpu().numpy(), last.float().cpu()
+
+
+def pipe_run(rt, frames, warmup: int, around=None):
+    """``warmup`` frames through the started runtime ``rt`` (every replica
+    makes its stream, the first launches), then ``frames`` with the
+    launch counts set to 0 just before and read just after, inside the
+    context ``around`` (the power sampler). Returns (stats, launches)."""
+    rt.run(frames[:warmup], timeout_s=600.0)
+    if rt.tracer is not None:
+        rt.tracer.drain()
+    torch.cuda.synchronize()
+    reset_launches()
+    with around or contextlib.nullcontext():
+        stats = rt.run(frames, timeout_s=600.0)
+    launches = launch_counts()
+    return stats, launches
+
+
+def check_frames(plan: str, stats, order, refs) -> float:
+    """Every frame delivered once, in order, with its monolithic prefill's
+    greedy token; returns the largest relative error of a last hidden
+    state against the monolithic one."""
+    n = len(order)
+    seq = stats["seq_ids"]
+    require(stats["frames_dropped"] == 0 and len(stats["outputs"]) == n
+            and seq == list(range(seq[0], seq[0] + n)),
+            f"pipeline plan {plan}: frames dropped or out of order")
+    worst = 0.0
+    for i, ((tok, hidden), k) in enumerate(zip(stats["outputs"], order)):
+        want_tok, want_hidden = refs[k]
+        require(np.array_equal(tok, want_tok),
+                f"pipeline plan {plan}: frame {i} gives token {tok}, its "
+                f"monolithic prefill {want_tok}")
+        worst = max(worst, max_err(hidden, want_hidden)
+                    / float(want_hidden.abs().max()))
+    return worst
+
+
+def stage_layers(plan, variant: str) -> int:
+    """Layer tasks in the plan's stages of ``variant``."""
+    stages = plan.freq_solution.stages if plan.freq_solution \
+        else plan.solution.stages
+    return sum(sum(1 for t in range(st.start, st.end + 1)
+                   if plan.chain.names[t].startswith("layer"))
+               for st in stages if getattr(st, "variant", "base") == variant)
+
+
+def phase_rates(peaks) -> dict:
+    """What the card reaches beside the H100 class's datasheet rates: a bf16
+    GEMM (M = N = K = RATE_GEMM) and a device-to-device copy of
+    RATE_COPY_BYTES (read once, written once), CUDA-event medians."""
+    n = RATE_GEMM
+    a = torch.randn(n, n, device=DEVICE, dtype=torch.bfloat16)
+    b = torch.randn(n, n, device=DEVICE, dtype=torch.bfloat16)
+    gemm_ms = time_ms(lambda: a @ b)
+    src = torch.empty(RATE_COPY_BYTES, dtype=torch.uint8, device=DEVICE)
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(lambda: dst.copy_(src))
+    rates = {"gemm_flop_s": 2 * n ** 3 / (gemm_ms * 1e-3),
+             "copy_bytes_s": 2 * RATE_COPY_BYTES / (copy_ms * 1e-3)}
+    log(phase="pipeline", part="rates", gemm_mnk=n, gemm_ms=gemm_ms,
+        copy_bytes=RATE_COPY_BYTES, copy_ms=copy_ms, **rates,
+        class_flop_s=H100_CLASS.peak_flops, class_bytes_s=H100_CLASS.hbm_bw,
+        gemm_share_of_class=rates["gemm_flop_s"] / H100_CLASS.peak_flops,
+        copy_share_of_class=rates["copy_bytes_s"] / H100_CLASS.hbm_bw,
+        peaks_of_card=list(peaks))
+    return rates
+
+
+def phase_pipeline(cfg, model, params, peaks) -> dict:
+    """phi3's layer chain planned by the port's planner and run by its
+    streaming runtime on the model already on the card, with real stage
+    functions (``pipeline/stages.py``: one CUDA stream per replica thread,
+    each stage fn waits for its stream, so busy time is device time).
+    Plan A: one stage of all 44 tasks on one card, under measured power.
+    Plan B: (2 big, 2 little), both the card: three stages, the middle
+    one two replicas. Plan C: the two-pass kernel's multiplier fitted from
+    a flash and a two-pass run of plan A's chain, registered, and a
+    ``variant_herad`` plan run. Gates: every frame's token equals its
+    monolithic prefill's, frames in order, exact flash / two-pass launch
+    counts; Plan B's last hidden states within PREFILL_REL_TOL; the power
+    capture parses, holds energy and averages at or below the card's
+    power limit. Frames come from a generator of their own, so the
+    phases after it see the data they saw before it was added. Returns
+    each attention kernel's launches per run of the phase."""
+    pipe = torch.Generator(device=DEVICE)
+    pipe.manual_seed(SEED + 2)
+    pool = [torch.randint(0, cfg.vocab, (1, PIPE_TOKENS), generator=pipe,
+                          device=DEVICE).to(torch.int32).cpu().numpy()
+            for _ in range(PIPE_POOL)]
+    monolithic(cfg, model, params, pool[0])             # warm-up
+    refs, mono_ms = [], []
+    for f in pool:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refs.append(monolithic(cfg, model, params, f))
+        mono_ms.append((time.perf_counter() - t0) * 1e3)
+    n_layers = cfg.n_layers
+
+    def frames(n):
+        order = [i % PIPE_POOL for i in range(n)]
+        return order, [pool[k] for k in order]
+
+    def system(b, l):
+        return HeterogeneousSystem(dataclasses.replace(H100_CLASS, count=b),
+                                   dataclasses.replace(H100_CLASS, count=l))
+
+    def plan(b, l, **kw):
+        return plan_pipeline(cfg, system=system(b, l),
+                             tokens_per_step=PIPE_TOKENS, mode="prefill",
+                             **kw)
+
+    def stages(p):
+        return [[p.chain.names[st.start], p.chain.names[st.end], st.cores,
+                 st.ctype, getattr(st, "variant", "base"),
+                 getattr(st, "freq", 1.0)]
+                for st in (p.freq_solution or p.solution).stages]
+
+    rates = phase_rates(peaks)
+    limit_w = card_power_limit_w()
+
+    # ---- Plan A: one stage, one card, under measured power
+    sys_a = system(1, 0)
+    plan_a = plan(1, 0)
+    require([(st.start, st.end, st.cores) for st in plan_a.solution.stages]
+            == [(0, len(plan_a.chain.names) - 1, 1)],
+            f"plan A is not one stage of all tasks: {stages(plan_a)}")
+    name_a = f"s0-{len(plan_a.chain.names) - 1}"
+    builder = model_stage_builder(model, params, plan_a.chain.names,
+                                  device=DEVICE)
+    tracer = Tracer()
+    rt = StreamingPipelineRuntime.from_plan(
+        plan_a, builder, power=PowerModel.from_device_classes(sys_a),
+        tracer=tracer).start()
+    try:
+        rt.run(frames(2)[1], timeout_s=600.0)
+        probe = rt.run(frames(4)[1], timeout_s=600.0)
+        n_a = max(PIPE_POOL, math.ceil(PIPE_STEADY_S
+                                       / (probe["total_s"] / 4)))
+        order_a, frames_a = frames(n_a)
+        sampler = PowerSampler()
+        stats_a, launches_a = pipe_run(rt, frames_a, warmup=2,
+                                       around=sampler)
+        events = to_chrome_events(tracer.drain(), t0=0.0)
+        prof_a = _profile(lambda: rt.run(frames_a[:8], timeout_s=600.0))
+    finally:
+        rt.stop()
+    rel_a = check_frames("A", stats_a, order_a, refs)
+    require(launches_a == {"ssd_scan": 0, "chunked_attention": 0,
+                           "flash_attention": n_layers * n_a},
+            f"pipeline plan A: launches {launches_a}, not "
+            f"{n_layers} x {n_a} flash")
+    samples = sampler.samples()
+    capture = parse_rapl_log(rapl_log(samples))
+    attr = attribute_energy(events, capture,
+                            stage_info=stage_info_from_plan(plan_a.solution),
+                            power=PowerModel.from_device_classes(sys_a))
+    require(attr.extent_s >= PIPE_MIN_STEADY_S,
+            f"pipeline plan A: {attr.extent_s} s of frames, not "
+            f"{PIPE_MIN_STEADY_S}")
+    require(attr.measured_j > 0 and capture.total_energy() > 0,
+            f"pipeline plan A: the power capture holds "
+            f"{capture.total_energy()} J, {attr.measured_j} J in the trace")
+    require(attr.measured_w <= limit_w,
+            f"pipeline plan A: {attr.measured_w} W measured over the "
+            f"card's limit {limit_w} W")
+    report_a = plan_a.energy_report(sys_a)
+    log(phase="pipeline", plan="A", arch=cfg.name, system=[1, 0],
+        stages=stages(plan_a), frames=n_a, tokens_per_frame=PIPE_TOKENS,
+        planned_period_ms=plan_a.period_us / 1e3,
+        measured_period_ms=stats_a["period_s"] * 1e3,
+        planned_over_measured=plan_a.period_us / 1e3
+        / (stats_a["period_s"] * 1e3),
+        monolithic_forward_ms_p50=statistics.median(mono_ms),
+        profile_8_frames={k: v for k, v in prof_a.items() if k != "top_ms"},
+        profile_top_ms=prof_a["top_ms"],
+        tokens_per_s=PIPE_TOKENS * stats_a["throughput_fps"],
+        busy_s=stats_a["busy_s"][(name_a, 0)], total_s=stats_a["total_s"],
+        launches=launches_a, tokens_equal_monolithic=True,
+        last_hidden_rel_err=rel_a, power_samples=len(samples),
+        power_sampler_ms=PIPE_POWER_MS, capture_s=capture.extent,
+        trace_extent_s=attr.extent_s, measured_j=attr.measured_j,
+        measured_w=attr.measured_w, power_limit_w=limit_w,
+        measured_j_per_frame=attr.measured_j / n_a,
+        runtime_modelled_j_per_frame=stats_a["energy_j"] / n_a,
+        plan_modelled_j_per_frame=report_a.total * 1e-6,
+        plan_modelled_w=report_a.avg_watts,
+        model_over_measured=attr.prediction_error,
+        power_model="H100_CLASS 700 W busy, 10 % idle (from_device_classes)")
+
+    # ---- Plan B: the reference's heterogeneous shape on one card
+    plan_b = plan(*PIPE_B)
+    shape = [(st.cores, plan_b.chain.is_rep(st.start, st.end))
+             for st in plan_b.solution.stages]
+    require(len(shape) == 3 and shape[1] == (2, True),
+            f"plan B is not three stages, the middle one two replicas: "
+            f"{stages(plan_b)}")
+    builder = model_stage_builder(model, params, plan_b.chain.names,
+                                  device=DEVICE)
+    order_b, frames_b = frames(PIPE_FRAMES_B)
+    rt = StreamingPipelineRuntime.from_plan(plan_b, builder).start()
+    try:
+        stats_b, launches_b = pipe_run(rt, frames_b, warmup=6)
+        prof = _profile(lambda: rt.run(frames_b[:16], timeout_s=600.0))
+    finally:
+        rt.stop()
+    rel_b = check_frames("B", stats_b, order_b, refs)
+    require(launches_b == {"ssd_scan": 0, "chunked_attention": 0,
+                           "flash_attention": n_layers * PIPE_FRAMES_B},
+            f"pipeline plan B: launches {launches_b}")
+    require(rel_b <= PREFILL_REL_TOL,
+            f"pipeline plan B: last hidden state {rel_b} from the "
+            f"monolithic prefill's, over {PREFILL_REL_TOL}")
+    log(phase="pipeline", plan="B", arch=cfg.name, system=list(PIPE_B),
+        stages=stages(plan_b), frames=PIPE_FRAMES_B,
+        planned_period_ms=plan_b.period_us / 1e3,
+        measured_period_ms=stats_b["period_s"] * 1e3,
+        measured_over_planned=stats_b["period_s"] * 1e6 / plan_b.period_us,
+        measured_over_plan_a=stats_b["period_s"] / stats_a["period_s"],
+        tokens_per_s=PIPE_TOKENS * stats_b["throughput_fps"],
+        busy_s={f"{k[0]}/r{k[1]}": v for k, v in stats_b["busy_s"].items()},
+        queue_wait_s={f"{k[0]}/r{k[1]}": v
+                      for k, v in stats_b["queue_wait_s"].items()},
+        replica_frames={f"{k[0]}/r{k[1]}": v
+                        for k, v in stats_b["replica_frames"].items()},
+        total_s=stats_b["total_s"], launches=launches_b,
+        tokens_equal_monolithic=True, last_hidden_rel_err=rel_b,
+        rel_err_limit=PREFILL_REL_TOL,
+        profile_16_frames={k: v for k, v in prof.items() if k != "top_ms"})
+
+    # ---- Plan C: fit the two-pass multiplier, plan by variant, run it
+    observations, fit_runs = [], {}
+    for variant, key in (("base", "flash_attention"),
+                         ("chunked", "chunked_attention")):
+        fn = model_stage_builder(
+            model, params, plan_a.chain.names, device=DEVICE,
+)(0, len(plan_a.chain.names) - 1,
+                                types.SimpleNamespace(variant=variant))
+        order_f, frames_f = frames(PIPE_FRAMES_FIT)
+        rt = StreamingPipelineRuntime([StageSpec(
+            name_a, fn, device_class="big", variant=variant)]).start()
+        try:
+            stats_f, launches_f = pipe_run(rt, frames_f, warmup=2)
+        finally:
+            rt.stop()
+        check_frames(f"C fit ({variant})", stats_f, order_f, refs)
+        want = {"ssd_scan": 0, "chunked_attention": 0, "flash_attention": 0}
+        want[key] = n_layers * PIPE_FRAMES_FIT
+        require(launches_f == want,
+                f"pipeline plan C fit ({variant}): launches {launches_f}")
+        observations += observations_from_run(rt.stages, stats_f)
+        fit_runs[variant] = stats_f["period_s"] * 1e3
+    fit = fit_variant_multipliers(observations)
+    mult = fit["chunked"]["B"]
+    reg = VariantRegistry()
+    for i in range(n_layers):
+        registry.register_family(reg, f"layer{i}", "flash_attention",
+                                 {"chunked": (mult, mult)})
+    spec = reg.spec_for(plan_a.chain)
+    # the registry's callables are kernels, not stage builders, and the
+    # runtime would call them as builders: the plan carries the measured
+    # multipliers, and the stage builder reads each stage's variant
+    plan_c = plan(*PIPE_B, strategy="variant_herad",
+                  variants=VariantSpec(spec.names, spec.task_names,
+                                       spec.mult))
+    builder = model_stage_builder(model, params, plan_c.chain.names,
+                                  device=DEVICE)
+    order_c, frames_c = frames(PIPE_FRAMES_C)
+    rt = StreamingPipelineRuntime.from_plan(plan_c, builder).start()
+    try:
+        stats_c, launches_c = pipe_run(rt, frames_c, warmup=6)
+    finally:
+        rt.stop()
+    rel_c = check_frames("C", stats_c, order_c, refs)
+    want_c = {"ssd_scan": 0,
+              "flash_attention": stage_layers(plan_c, "base") * PIPE_FRAMES_C,
+              "chunked_attention": stage_layers(plan_c, "chunked")
+              * PIPE_FRAMES_C}
+    require(launches_c == want_c,
+            f"pipeline plan C: launches {launches_c}, the plan's variants "
+            f"imply {want_c}")
+    log(phase="pipeline", plan="C", arch=cfg.name, system=list(PIPE_B),
+        fit_period_ms=fit_runs, fitted_chunked_multiplier=mult,
+        fit=fit, tpu_round_preset=[1.30, 0.82],
+        preset_source="configs/dvbs2.py VARIANT_MULTIPLIERS (unchanged)",
+        stages=stages(plan_c), frames=PIPE_FRAMES_C,
+        planned_period_ms=plan_c.period_us / 1e3,
+        measured_period_ms=stats_c["period_s"] * 1e3,
+        launches=launches_c, launches_implied=want_c,
+        tokens_equal_monolithic=True, last_hidden_rel_err=rel_c)
+    log(phase="pipeline", arch=cfg.name, one_card_one_class=True,
+        gemm_flop_s=rates["gemm_flop_s"], copy_bytes_s=rates["copy_bytes_s"])
+    runs = {"A": launches_a, "B": launches_b, "C": launches_c}
+    return {key: {plan: n[key] for plan, n in runs.items()}
+            for key in ("flash_attention", "chunked_attention")}
 
 
 # ================================================================ zamba2-7b
@@ -2555,6 +2979,9 @@ def main() -> int:
     phase_profile(gen, cfg, model, params, PHI3_ATTN[0], PHI3_ATTN[3])
     peak_mem(cfg.name, "governed_serve", phase_governed_serve, cfg, model,
              params)
+    pipeline_launches = peak_mem(cfg.name, "pipeline", phase_pipeline, cfg,
+                                 model, params, peaks)
+    fa_rec["pipeline_launches"] = pipeline_launches["flash_attention"]
     held = torch.cuda.memory_allocated()
     del cfg, model, params, last
     gc.collect()
@@ -2563,6 +2990,7 @@ def main() -> int:
         after_gb=torch.cuda.memory_allocated() / 1e9)
 
     ca_rec = phase_attention_kernels(gen, added, peaks, fa_rec)
+    ca_rec["pipeline_launches"] = pipeline_launches["chunked_attention"]
     ssd_rec = phase_ssd_kernel(gen, added, peaks)
     cfg, model, params, cache, last = phase_zamba_prefill(
         gen, fa_rec, ca_rec, ssd_rec)

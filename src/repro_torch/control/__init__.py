@@ -1,12 +1,13 @@
 """Adaptive runtime control, the port's counterpart of ``repro.control``:
-time-varying power caps (:mod:`~repro_torch.control.budget`), the
-closed-loop :class:`~repro_torch.control.governor.Governor` that re-plans
-off the (period, energy) Pareto frontier, and the SLO-governed serving
-scenario (:mod:`~repro_torch.control.sim`).
-
-Not carried yet: ``calibrate`` (power-model fitting from measured
-traces) and the sleep-simulated pipeline scenarios (``run_scenario`` and
-its sleeping stage functions), which need the pipeline runtime.
+time-varying power caps (:mod:`~repro_torch.control.budget`),
+least-squares fitting of power models and kernel-variant multipliers from
+measured runs (:mod:`~repro_torch.control.calibrate`), the closed-loop
+:class:`~repro_torch.control.governor.Governor` that re-plans off the
+(period, energy) Pareto frontier and swaps the schedule into
+:class:`~repro_torch.pipeline.runtime.StreamingPipelineRuntime`, and the
+scenario harness (:mod:`~repro_torch.control.sim`): the sleep-simulated
+pipeline scenarios (``run_scenario``) and the SLO-governed serving
+scenario (``run_serve_scenario``).
 """
 from .budget import (  # noqa: F401
     BatteryBudget,
@@ -16,6 +17,18 @@ from .budget import (  # noqa: F401
     ScriptedBudget,
     ThermalThrottleBudget,
 )
+from .calibrate import (  # noqa: F401
+    TraceSample,
+    VariantObservation,
+    fit_power_model,
+    fit_report,
+    fit_variant_multipliers,
+    observations_from_run,
+    sample_from_run,
+    samples_from_capture,
+    stage_info_from_plan,
+    synthesize_samples,
+)
 from .governor import (  # noqa: F401
     ActivePlan,
     Governor,
@@ -24,9 +37,13 @@ from .governor import (  # noqa: F401
 )
 from .sim import (  # noqa: F401
     Arrival,
+    ScenarioResult,
     ServeScenarioResult,
     ServeWindowRecord,
+    WindowRecord,
     bursty_arrivals,
     diurnal_arrivals,
+    run_scenario,
     run_serve_scenario,
+    sleep_stage_builder,
 )

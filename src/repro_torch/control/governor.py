@@ -1,6 +1,6 @@
 """Closed-loop governor: monitor, detect, re-plan, swap.
 
-The bridge between the measured runtime (``repro.pipeline.runtime``) and
+The bridge between the measured runtime (``repro_torch.pipeline.runtime``) and
 the Pareto-frontier machinery (``repro_torch.energy.pareto``). The paper's
 schedulers pick one static plan from an assumed power model; the governor
 closes the loop:
@@ -95,7 +95,7 @@ Periods are in the chain's time unit (µs for the DVB-S2 tables); budget
 trace times are seconds of scenario clock; predicted draws are watts
 (energy per frame / period). The governor itself is pure control logic
 over :class:`Observation` values — attach a
-:class:`~repro.pipeline.runtime.StreamingPipelineRuntime` and every
+:class:`~repro_torch.pipeline.runtime.StreamingPipelineRuntime` and every
 re-plan is also swapped in via ``runtime.rebuild(plan)``; leave it
 detached and the same logic drives scripted scenario tests
 deterministically.

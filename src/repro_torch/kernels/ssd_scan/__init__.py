@@ -1,3 +1,3 @@
 """Mamba2 SSD chunked scan: ``kernel.py`` (``ssd_cuda``, the CUDA
-kernel's wrapper and the public entry) and ``ref.py`` (plain PyTorch
-version, the naive sequential recurrence)."""
+kernel's wrapper), ``ops.py`` (``ssd``, the public entry from zero state)
+and ``ref.py`` (plain PyTorch version, the naive sequential recurrence)."""

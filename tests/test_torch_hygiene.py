@@ -141,3 +141,20 @@ def test_ssd_wrapper_raises_instead_of_falling_back():
     with pytest.raises(ValueError, match="CUDA"):
         sk.ssd_cuda(*args)
     assert sk.launches == before
+
+
+def test_process_executor_raises_once_cuda_is_initialised(monkeypatch):
+    """The pipeline runtime's process executor forks its workers, and a
+    child forked after CUDA was initialised cannot use it: the runtime
+    raises instead of quietly running its stages on threads."""
+    from repro_torch.pipeline import StageSpec, StreamingPipelineRuntime
+
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    with pytest.raises(RuntimeError, match="executor='thread'"):
+        StreamingPipelineRuntime([StageSpec("s", lambda x: x)],
+                                 executor="process")
+    rt = StreamingPipelineRuntime([StageSpec("s", lambda x: x + 1)])
+    assert rt.executor == "thread"
+    rt.start()
+    assert rt.run([1, 2])["outputs"] == [2, 3] and rt._threads
+    rt.stop()

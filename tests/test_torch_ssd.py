@@ -103,6 +103,22 @@ def test_kernel_wrapper_on_cpu_matches_pallas_interpret(case):
     assert _err(y, yr) < 1e-4 and _err(s, sr) < 1e-4
 
 
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_public_ssd_matches_reference_ops(case):
+    """``ssd_scan.ops.ssd``, the public entry from zero state, against the
+    reference's ``ops.ssd`` (Pallas in interpret mode) on the reference's
+    four cases: the port's wrapper, whose CPU path is the plain version."""
+    from repro.kernels.ssd_scan import ops as jops
+    from repro_torch.kernels.ssd_scan import ops
+
+    b, l, h, p, n, chunk = case
+    t, j = _both(_inputs(2, b, l, h, p, n), torch.float32, jnp.float32)
+    y, s = ops.ssd(*t, chunk=chunk)
+    yr, sr = jops.ssd(*j, chunk=chunk, interpret=True)
+    assert y.shape == (b, l, h, p) and s.shape == (b, h, p, n)
+    assert _err(y, yr) < 1e-4 and _err(s, sr) < 1e-4
+
+
 @pytest.mark.parametrize("with_state", [False, True])
 @pytest.mark.parametrize("case", SSD_CASES)
 def test_ssd_ref_blocked_matches_jax(case, with_state):
