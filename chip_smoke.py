@@ -202,9 +202,40 @@ runs at full width and depth:
             decodes over zero cross K/V.
 Each whisper phase, and every serve phase, logs its device memory
 peak.
+Then whisper is freed and the training slice runs, from its own generator:
+  stablelm_kernels : both attention kernels at head dim 80 (one
+            m64n80k16 for P V) at a microbatch of the train phase,
+            stablelm-3b's (2, 32, 32, 4096, 80) causal, fp32 (2e-5) and
+            bf16 (2e-2) against the plain version; kernel times in both
+            dtypes, in bf16 the plain and library times and the bound.
+  grad    : each kernel's autograd Function (the kernel's forward, a plain
+            PyTorch backward) against autograd of its plain version,
+            fp32 (1e-4) and bf16 (5e-2), max |difference| over max
+            |reference| of every input's gradient: flash and two-pass on
+            causal, window, non-causal ragged, GQA-4 cases at head dims
+            80 and 128; the SSD scan at zamba2's head layout from zero and
+            from an initial state. The control, each wrapper's forward
+            without its Function (q, k, v get no gradient), must fail.
+  train   : stablelm-3b at full width and depth, bf16, random weights:
+            (a) one microbatch's loss and every leaf's gradient through
+            the flash kernel against the plain chunked attention (loss
+            1e-2 relative, each leaf ||g - g_plain|| / ||g_plain|| 5e-2,
+            every gradient nonzero), a detached-attention control must
+            fail; (b) 8 adamw8 steps (lr 3e-4) of 2 microbatches of
+            2 x 4096 tokens with per-layer remat: losses finite, the last
+            below the first, exactly 128 flash launches a step (forward
+            and recompute) and none of the others; step time, tokens/s,
+            model TFLOP/s, peak memory, the attention backward's device
+            time and a profiled step's idle share; the same steps at lr
+            1e-3, logged, not gated; (c) at the same width cut to 2
+            layers, an asynchronous checkpoint after step 4, on to step 8,
+            a restore into a fresh state and steps 5-8 again: every
+            restored leaf, and the resumed losses and parameters, equal
+            the uninterrupted run's bit for bit. Each logs its seconds.
 Then the card's name and power limit, one JSON line of kernel records
 (each with its body per dtype, ``design``, its TFLOP/s and its share of
-the bound), and the result line. Any failure raises and exits non-zero; without a
+the bound, and ``train_launches``, a training step's launches), and the
+result line. Any failure raises and exits non-zero; without a
 CUDA device it exits 1 before any phase.
 """
 from __future__ import annotations
@@ -241,9 +272,13 @@ from repro_torch.control import (  # noqa: E402
     run_serve_scenario, stage_info_from_plan)
 from repro_torch.core.variants import VariantRegistry, VariantSpec  # noqa: E402
 from repro_torch.energy.model import PowerModel  # noqa: E402
+from repro_torch.ckpt import CheckpointManager  # noqa: E402
+from repro_torch.data import SyntheticLM  # noqa: E402
+from repro_torch.kernels import autograd as kautograd  # noqa: E402
 from repro_torch.kernels import build, registry  # noqa: E402
 from repro_torch.kernels.flash_attention import chunked as ca  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_kernel_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_ref_sequential  # noqa: E402
@@ -261,6 +296,9 @@ from repro_torch.pipeline.stages import model_stage_builder  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     AdmissionPlanner, Request, ServeEngine, SimClock)
 from repro_torch.serve.graph import CapturedStep  # noqa: E402
+from repro_torch.train import (  # noqa: E402
+    OptConfig, TrainConfig, init_train_state, make_train_step)
+from repro_torch.train.optimizer import tree_leaves, tree_map  # noqa: E402
 
 # b, hq, hkv, sq, skv, d, causal, window (tests/test_kernels.py FLASH_CASES;
 # its Pallas block sizes do not apply to this kernel)
@@ -418,6 +456,41 @@ WHISPER_BATCH, WHISPER_PROMPT, WHISPER_CACHE_LEN = 16, 224, 448
 # both kernels, non-causal over a ragged last key tile (1500 = 23 * 64 +
 # 28) beside whisper's own shapes (b, hq, hkv, sq, skv, d, causal, window)
 WHISPER_CASES = [(1, 4, 4, 100, 1500, 64, False, 0)]
+# the training slice: stablelm-3b (head dim 80) at full width and depth,
+# bf16, random weights from SEED, AdamW with int8 moments, a global batch
+# of TRAIN_BATCH x TRAIN_SEQ tokens (the reference's train_4k) in
+# TRAIN_MB microbatches, SyntheticLM's seed 17; per-layer remat runs
+# the flash kernel twice a layer a microbatch (forward and recompute).
+# The peak learning rate is 3e-4: at TRAIN_PROBE_LR, the reference
+# driver's default (sized for its smoke configs), the loss of the randomly
+# drawn 3B model rises for most of the 8 steps and ends above where it
+# began (on an H100 80GB HBM3 at 700 W); the train phase runs that rate
+# too, logged beside the gated one
+TRAIN_ARCH = "stablelm-3b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MB, TRAIN_STEPS = 4096, 4, 2, 8
+TRAIN_DATA_SEED = 17
+TRAIN_OPT = {"name": "adamw8", "lr": 3e-4, "warmup": 2, "total_steps": 16}
+TRAIN_PROBE_LR = 1e-3
+# one microbatch's loss and gradients, kernel against plain attention:
+# the loss relative, each leaf's ||g - g_plain|| / ||g_plain||
+TRAIN_LOSS_REL_TOL, TRAIN_GRAD_REL_TOL = 1e-2, 5e-2
+# the checkpoint round trip: the same width cut to CKPT_LAYERS layers
+# (a ~1 GB write), saved asynchronously after CKPT_SAVE_AFTER steps, into
+# the checkout's ignored build directory
+CKPT_LAYERS, CKPT_SAVE_AFTER = 2, 4
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+# the grad phase: each Function's gradients against autograd of the
+# kernel's plain version, max |difference| over max |reference|
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# b, hq, hkv, sq, skv, d, causal, window
+GRAD_ATTN_CASES = {"causal-d128": (2, 4, 4, 200, 200, 128, True, 0),
+                   "window-d80": (1, 4, 4, 300, 300, 80, True, 64),
+                   "noncausal-ragged-d80": (2, 4, 4, 150, 333, 80, False, 0),
+                   "gqa4-d128": (1, 8, 2, 256, 256, 128, True, 0),
+                   "gqa4-d80": (1, 8, 2, 256, 256, 80, True, 0)}
+# b, l, h, p, n, chunk: zamba2's head layout (head dim 64, 64 states) at a
+# ragged length
+GRAD_SSD_CASE = (2, 300, 4, 64, 64, 128)
 # the governed-serving scenario, with the constants of
 # examples/serve_pipeline.py, and the smoke model of its CPU replay
 GOV_PLATFORM = "mac"
@@ -2931,6 +3004,421 @@ def phase_whisper_prefill(gen, fa_rec, ca_rec):
     return cfg, model, params, cache, last, batch
 
 
+# ============================================================== training
+def phase_stablelm_kernels(gen, peaks, fa_rec, ca_rec) -> None:
+    """Both attention kernels at head dim 80 (the m64n80k16 bodies), at a
+    microbatch of the train phase, stablelm-3b's (2, 32, 32, 4096, 80)
+    causal: fp32 (2e-5) and bf16 (2e-2) against the plain version; kernel
+    times in both dtypes, in bf16 the plain and library (SDPA) times and
+    the bound, added to each kernel's record under ``stablelm_shape``."""
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    b, hq, hkv, s, d = (TRAIN_BATCH // TRAIN_MB, cfg.n_heads, cfg.n_kv_heads,
+                        TRAIN_SEQ, cfg.hd)
+    flops, nbytes = attn_work(b, hq, hkv, s, d)
+    bound_ms, bound_by = bound(flops, nbytes, peaks)
+    kernels = (("flash", fa.flash_attention_cuda, fa_rec),
+               ("chunked", ca.chunked_attention_cuda, ca_rec))
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = qkv(gen, b, hq, hkv, s, s, d, dtype)
+        ref = attention_kernel_ref(q, k, v, causal=True)
+        bf16 = dtype == torch.bfloat16
+        if bf16:
+            plain_ms = time_ms(lambda: attention_kernel_ref(q, k, v,
+                                                            causal=True),
+                               reps=20)
+            lib_ms = library_ms(q, k, v)
+        for name, kernel, rec in kernels:
+            out = kernel(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            require(bool(torch.isfinite(out).all()) and err < TOL[dtype],
+                    f"{name} kernel error {err} ({str(dtype)[6:]}) at "
+                    f"head dim {d}, {TRAIN_ARCH}'s shape")
+            ms = time_ms(lambda: kernel(q, k, v, causal=True))
+            entry = rec.setdefault("stablelm_shape", {
+                "shape": [b, hq, hkv, s, d], "causal": True})
+            if not bf16:
+                entry["fp32"] = {"max_abs_err": err, "ms": ms}
+                continue
+            entry.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=lib_ms, tflops=flops / ms / 1e9,
+                         share_of_bound=bound_ms / ms)
+            del out
+        del q, k, v, ref
+    log(phase="stablelm_kernels", seconds=time.perf_counter() - t0,
+        flash=fa_rec["stablelm_shape"], chunked=ca_rec["stablelm_shape"])
+
+
+def within(errs, tol: float) -> bool:
+    """Every error at or below ``tol``; a NaN is not."""
+    return all(e <= tol for e in errs)
+
+
+def grad_rel_errs(out, inputs, grad_out, ref) -> list[float]:
+    """max |g - ref| / max |ref| of each input's gradient through ``out``
+    (a tensor or a tuple of tensors); inf where an input receives none,
+    as from an output autograd cannot reach (no ``grad_fn``)."""
+    outs = out if isinstance(out, tuple) else (out,)
+    if all(o.grad_fn is None for o in outs):
+        return [math.inf] * len(inputs)
+    got = torch.autograd.grad(outs, inputs, grad_out, allow_unused=True)
+    return [math.inf if g is None else
+            float((g.float() - r.float()).abs().max())
+            / max(float(r.float().abs().max()), 1e-30)
+            for g, r in zip(got, ref)]
+
+
+def ssd_grad_inputs(gen, dtype, init: bool):
+    b, l, h, p, n, _ = GRAD_SSD_CASE
+    x, dt, a, bmat, cmat = ssd_inputs(gen, b, l, h, p, n, dtype)
+    s0 = torch.randn((b, h, p, n), generator=gen, device=DEVICE) \
+        if init else None
+    inputs = [t.detach().requires_grad_() for t in (x, dt, a, bmat, cmat)]
+    if init:
+        inputs.append(s0.requires_grad_())
+    return inputs
+
+
+def phase_grad(gen) -> None:
+    """Each autograd Function on the card against autograd of its kernel's
+    plain version (``attention_kernel_ref``, ``ssd_ref_sequential``) on the
+    same inputs, fp32 (1e-4) and bf16 (5e-2), max |difference| over max
+    |reference| of every input's gradient: flash and two-pass on
+    ``GRAD_ATTN_CASES`` (causal, window, non-causal over a ragged key
+    length, GQA group 4, head dims 80 and 128), the SSD scan on
+    ``GRAD_SSD_CASE`` from zero and from an initial state. The control,
+    each wrapper's forward without its Function (the wrappers before it:
+    q, k, v receive no gradient), must fail the gate."""
+    t0 = time.perf_counter()
+    errs, controls = {}, {}
+    raw = {"flash": (fa.flash_attention_cuda, fa._flash_fwd),
+           "chunked": (ca.chunked_attention_cuda, ca._chunked_fwd)}
+    for case_name, case in GRAD_ATTN_CASES.items():
+        b, hq, hkv, sq, skv, d, causal, window = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.detach().requires_grad_() for t in
+                       qkv(gen, b, hq, hkv, sq, skv, d, dtype))
+            do = torch.randn((b, hq, sq, d), generator=gen, device=DEVICE,
+                             dtype=torch.float32).to(dtype)
+            ref = torch.autograd.grad(
+                attention_kernel_ref(q, k, v, causal=causal, window=window),
+                (q, k, v), do)
+            for name, (wrapper, fwd) in raw.items():
+                e = grad_rel_errs(wrapper(q, k, v, causal=causal,
+                                          window=window), (q, k, v), do, ref)
+                key = f"{name}/{case_name}/{str(dtype)[6:]}"
+                errs[key] = e
+                require(within(e, GRAD_TOL[dtype]),
+                        f"{key}: q, k, v gradient errors {e} > "
+                        f"{GRAD_TOL[dtype]}")
+                c = grad_rel_errs(fwd(q, k, v, causal, window), (q, k, v),
+                                  do, ref)
+                controls[key] = c
+                require(not within(c, GRAD_TOL[dtype]),
+                        f"{key}: the detached control passes the gate: {c}")
+    for dtype in (torch.float32, torch.bfloat16):
+        for init in (False, True):
+            inputs = ssd_grad_inputs(gen, dtype, init)
+            chunk = GRAD_SSD_CASE[5]
+            y2, s2 = ssd_ref_sequential(*inputs[:5], inputs[5] if init
+                                        else None)
+            dy = torch.randn(y2.shape, generator=gen, device=DEVICE)
+            ds = torch.randn(s2.shape, generator=gen, device=DEVICE)
+            ref = torch.autograd.grad((y2, s2), inputs, (dy.to(y2.dtype), ds))
+            out = sk.ssd_cuda(*inputs[:5], chunk=chunk,
+                              init_state=inputs[5] if init else None)
+            e = grad_rel_errs(out, inputs, (dy.to(out[0].dtype), ds), ref)
+            key = f"ssd/{'init' if init else 'zero'}/{str(dtype)[6:]}"
+            errs[key] = e
+            require(within(e, GRAD_TOL[dtype]),
+                    f"{key}: x, dt, a, B, C(, init) gradient errors {e}")
+            c = grad_rel_errs(sk._ssd_fwd(*inputs[:5], chunk, inputs[5]
+                                          if init else None),
+                              inputs, (dy.to(out[0].dtype), ds), ref)
+            controls[key] = c
+            require(not within(c, GRAD_TOL[dtype]),
+                    f"{key}: the detached control passes the gate: {c}")
+    log(phase="grad", seconds=time.perf_counter() - t0,
+        tol={str(k)[6:]: v for k, v in GRAD_TOL.items()},
+        rel_err_q_k_v_or_x_dt_a_B_C_init=errs,
+        control_rel_err=controls)
+
+
+def train_flops(cfg, tokens: int, s: int) -> float:
+    """Model FLOPs of a training step (no recompute counted): 3 x the
+    forward's, 2 per weight of every product (the layers' projections and
+    MLP, the tied head) and 4 hd per causal (query, key) pair a head."""
+    d, f, hq, hkv, hd = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.hd)
+    weights = cfg.n_layers * (2 * d * hq * hd + 2 * d * hkv * hd + 3 * d * f) \
+        + cfg.padded_vocab * d
+    attn = cfg.n_layers * 4 * hq * hd * (s + 1) / 2
+    return 3.0 * tokens * (2 * weights + attn)
+
+
+@contextlib.contextmanager
+def timed_attention_backward(record: list):
+    """Every attention backward (``attention_kernel_bwd_ref``, the plain
+    backward of both attention Functions) between two CUDA events, whose
+    pairs go into ``record``."""
+    saved = kautograd.attention_kernel_bwd_ref
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = saved(*args, **kw)
+        end.record()
+        record.append((start, end))
+        return out
+
+    kautograd.attention_kernel_bwd_ref = timed
+    try:
+        yield
+    finally:
+        kautograd.attention_kernel_bwd_ref = saved
+
+
+@contextlib.contextmanager
+def attention_detached():
+    """The control: the model's flash attention through the kernel's
+    forward without its autograd Function, the wrapper before this slice,
+    whose output autograd cannot reach q, k and v through."""
+    saved = fa_ops.flash_attention_cuda
+    fa_ops.flash_attention_cuda = \
+        lambda q, k, v, *, causal, window: fa._flash_fwd(q, k, v, causal,
+                                                         window)
+    try:
+        yield
+    finally:
+        fa_ops.flash_attention_cuda = saved
+
+
+def device_batch(data, step: int) -> dict:
+    return {k: torch.from_numpy(v).to(DEVICE)
+            for k, v in data.batch(step).items()}
+
+
+def loss_and_grads(model, params, batch):
+    """``Model.loss`` of ``batch`` and its gradients, fp32, by leaf."""
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss = model.loss(live, batch)
+    grads = torch.autograd.grad(loss, tree_leaves(live), allow_unused=True,
+                                materialize_grads=True)
+    return float(loss.detach()), grads
+
+
+def leaf_names(tree, prefix="") -> list[str]:
+    if not isinstance(tree, dict):
+        return [prefix]
+    return [n for k in sorted(tree) for n in
+            leaf_names(tree[k], f"{prefix}/{k}" if prefix else k)]
+
+
+def phase_train_grads(cfg, params, batch) -> dict:
+    """(a) One microbatch's loss and every leaf's gradient through the
+    flash kernel against the plain chunked attention (``xla_flash``):
+    the loss within ``TRAIN_LOSS_REL_TOL``, each leaf's ||g - g_plain|| /
+    ||g_plain|| within ``TRAIN_GRAD_REL_TOL``, every gradient nonzero. A
+    control with the attention detached must fail."""
+    names = leaf_names(params)
+    plain_loss, plain = loss_and_grads(
+        Model(dataclasses.replace(cfg, attn_impl="xla_flash")), params, batch)
+    norms = [float(g.float().norm()) for g in plain]
+
+    def gate(loss, grads):
+        rel = {n: float((g.float() - p.float()).norm()) / max(nm, 1e-30)
+               for n, g, p, nm in zip(names, grads, plain, norms)}
+        zero = [n for n, g in zip(names, grads) if not bool(g.any())]
+        loss_rel = abs(loss - plain_loss) / abs(plain_loss)
+        ok = (loss_rel <= TRAIN_LOSS_REL_TOL and not zero
+              and within(rel.values(), TRAIN_GRAD_REL_TOL))
+        return ok, {"loss": loss, "loss_rel_err": loss_rel,
+                    "grad_rel_err": rel, "zero_grad_leaves": zero}
+
+    model = Model(cfg)
+    reset_launches()
+    ok, kernel = gate(*loss_and_grads(model, params, batch))
+    kernel["flash_launches"] = fa.launches
+    require(ok, f"{cfg.name}: kernel loss and gradients against the plain "
+            f"attention's: {kernel}")
+    with attention_detached():
+        ok_c, control = gate(*loss_and_grads(model, params, batch))
+    require(not ok_c, f"{cfg.name}: the detached-attention control passes "
+            f"the gradient gate: {control}")
+    return {"plain_loss": plain_loss, "kernel": kernel,
+            "control_attention_detached": {
+                "loss_rel_err": control["loss_rel_err"],
+                "zero_grad_leaves": control["zero_grad_leaves"],
+                "max_grad_rel_err": max(control["grad_rel_err"].values())}}
+
+
+def run_steps(step_fn, state, data, first: int, last: int):
+    """Steps ``first`` .. ``last`` - 1 (batch i at step i): (state, losses,
+    per-step wall seconds, launches, attention-backward ms, and (grad
+    norm, lr))."""
+    losses, secs, launches, bwd_ms, norms = [], [], [], [], []
+    for i in range(first, last):
+        batch = device_batch(data, i)
+        events = []
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timed_attention_backward(events):
+            state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append((float(m["grad_norm"]), float(m["lr"])))
+        launches.append({"flash_attention": fa.launches,
+                         "chunked_attention": ca.launches,
+                         "ssd_scan": sk.launches})
+        bwd_ms.append(sum(a.elapsed_time(b) for a, b in events))
+    return state, losses, secs, launches, bwd_ms, norms
+
+
+def phase_train(fa_rec, ca_rec, ssd_rec, peaks) -> None:
+    """stablelm-3b at full width and depth, bf16, random weights from
+    SEED: (a) :func:`phase_train_grads` on the first microbatch; (b)
+    ``TRAIN_STEPS`` steps of ``make_train_step`` (adamw8 at 3e-4,
+    ``TRAIN_MB`` microbatches of ``TRAIN_SEQ`` tokens; the same steps at
+    ``TRAIN_PROBE_LR`` logged after them), each loss finite, the last below
+    the first, exactly 2 x layers x microbatches flash launches a step
+    (forward and remat recompute) and none of the others; step time, tokens
+    a second, model TFLOP/s, peak memory, the attention backward's device
+    time, and a torch.profiler trace of one more step (idle share); (c) the
+    checkpoint round trip at the same width cut to ``CKPT_LAYERS`` layers:
+    an asynchronous save after ``CKPT_SAVE_AFTER`` steps, on to step
+    ``TRAIN_STEPS``, a restore into a fresh state and the last steps again:
+    every restored leaf equals the saved one, and the resumed losses and
+    parameters equal the uninterrupted run's bit for bit."""
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    model = Model(cfg)
+    tcfg = TrainConfig(n_microbatches=TRAIN_MB, opt=OptConfig(**TRAIN_OPT))
+    data = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH,
+                       seed=TRAIN_DATA_SEED)
+    state = init_train_state(model, SEED, tcfg, device=DEVICE)
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    mb = {k: v[:TRAIN_BATCH // TRAIN_MB]
+          for k, v in device_batch(data, 0).items()}
+    grads = phase_train_grads(cfg, state["params"], mb)
+    del mb
+    log(phase="train_grads", arch=cfg.name, params=n_params,
+        seconds=time.perf_counter() - t0, **grads)
+
+    t1 = time.perf_counter()
+    step_fn = make_train_step(model, tcfg)
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, secs, launches, bwd_ms, norms = run_steps(
+        step_fn, state, data, 0, TRAIN_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    batch = device_batch(data, TRAIN_STEPS)
+    prof = _profile(lambda: step_fn(state, batch))
+    del batch
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = statistics.median(secs[1:])
+    flops = train_flops(cfg, tokens, TRAIN_SEQ)
+    fa_rec["train_launches"] = launches[-1]["flash_attention"]
+    ca_rec["train_launches"] = launches[-1]["chunked_attention"]
+    ssd_rec["train_launches"] = launches[-1]["ssd_scan"]
+    log(phase="train_steps", arch=cfg.name, steps=TRAIN_STEPS,
+        opt=TRAIN_OPT, microbatches=TRAIN_MB, seq=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, losses=losses, grad_norm_lr=norms,
+        step_s=secs, step_s_p50=step_s, tokens_per_s=tokens / step_s,
+        model_tflop_per_step=flops / 1e12,
+        model_tflops=flops / step_s / 1e12,
+        model_flops_share_of_989=flops / step_s / peaks[0],
+        peak_mem_gb=peak_gb, attention_backward_ms=bwd_ms,
+        attention_backward_share=statistics.median(bwd_ms[1:]) / 1e3
+        / step_s, launches_per_step=launches, profile=prof,
+        seconds=time.perf_counter() - t1)
+    want = 2 * cfg.n_layers * TRAIN_MB
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"{cfg.name} training losses {losses}")
+    require(all(n == {"flash_attention": want, "chunked_attention": 0,
+                      "ssd_scan": 0} for n in launches),
+            f"launches a step {launches}, want {want} flash and no other")
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_lr_probe(model, data)
+    phase_checkpoint(cfg, tcfg, data)
+    log(phase="train", seconds=time.perf_counter() - t0)
+
+
+def phase_lr_probe(model, data) -> None:
+    """The same steps from the same weights at ``TRAIN_PROBE_LR``, logged
+    and not gated: the evidence for the gated run's smaller rate."""
+    t0 = time.perf_counter()
+    tcfg = TrainConfig(n_microbatches=TRAIN_MB, opt=OptConfig(
+        **dict(TRAIN_OPT, lr=TRAIN_PROBE_LR)))
+    state = init_train_state(model, SEED, tcfg, device=DEVICE)
+    _, losses, _, _, _, norms = run_steps(make_train_step(model, tcfg),
+                                          state, data, 0, TRAIN_STEPS)
+    log(phase="train_lr_probe", lr=TRAIN_PROBE_LR, losses=losses,
+        grad_norm_lr=norms, falls=losses[-1] < losses[0],
+        seconds=time.perf_counter() - t0)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_checkpoint(cfg, tcfg, data) -> None:
+    """(c) of :func:`phase_train`."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, n_layers=CKPT_LAYERS)
+    model = Model(cfg)
+    step_fn = make_train_step(model, tcfg)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    mgr = CheckpointManager(CKPT_DIR, keep=1)
+    try:
+        state = init_train_state(model, SEED, tcfg, device=DEVICE)
+        saved, first, *_ = run_steps(step_fn, state, data, 0,
+                                     CKPT_SAVE_AFTER)
+        t_save = time.perf_counter()
+        mgr.save(CKPT_SAVE_AFTER, saved, metadata={"arch": cfg.name})
+        save_s = time.perf_counter() - t_save
+        full, losses, *_ = run_steps(step_fn, saved, data, CKPT_SAVE_AFTER,
+                                     TRAIN_STEPS)
+        t_wait = time.perf_counter()
+        mgr.wait()
+        wait_s = time.perf_counter() - t_wait
+        nbytes = sum(f.stat().st_size for f in
+                     (CKPT_DIR / f"step_{CKPT_SAVE_AFTER}").iterdir())
+        fresh = init_train_state(model, SEED + 1, tcfg, device=DEVICE)
+        restored, meta = mgr.restore(CKPT_SAVE_AFTER, fresh)
+        del fresh
+        pairs = list(zip(flat_tensors(saved), flat_tensors(restored)))
+        require(all(a.device == b.device and torch.equal(a, b)
+                    for a, b in pairs),
+                "a restored leaf differs from the saved one")
+        resumed, again, *_ = run_steps(step_fn, restored, data,
+                                       CKPT_SAVE_AFTER, TRAIN_STEPS)
+        same = [torch.equal(a, b) for a, b in
+                zip(flat_tensors(full), flat_tensors(resumed))]
+        require(again == losses and all(same),
+                f"resume: losses {again} vs {losses}, "
+                f"{same.count(False)} leaves differ")
+        log(phase="train_checkpoint", arch=cfg.name, layers=CKPT_LAYERS,
+            losses_to_save=first, losses=losses, resumed_losses=again,
+            leaves=len(pairs), bytes=nbytes, save_call_s=save_s,
+            wait_after_steps_s=wait_s, metadata=meta,
+            seconds=time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+
+def flat_tensors(tree) -> list[torch.Tensor]:
+    """Every tensor of a train state, a quantised moment's parts included,
+    keys sorted at every level."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in flat_tensors(tree[k])]
+    return [tree]
+
+
 def peak_mem(arch: str, what: str, fn, *args, **kw):
     """``fn(*args, **kw)``, logging the device memory peak of the call."""
     torch.cuda.reset_peak_memory_stats()
@@ -3075,6 +3563,16 @@ def main() -> int:
     peak_mem(arch, "profile", phase_profile, gen, cfg, model, params,
              WHISPER_BATCH, WHISPER_PROMPT, extra={"frames": batch["frames"]},
              cache_len=WHISPER_CACHE_LEN)
+    del cfg, model, params, batch
+    free_model(arch)
+
+    # the training slice, from its own generator: the phases before it
+    # see the data they saw before it was added
+    train_gen = torch.Generator(device=DEVICE)
+    train_gen.manual_seed(SEED + 3)
+    phase_stablelm_kernels(train_gen, peaks, fa_rec, ca_rec)
+    phase_grad(train_gen)
+    phase_train(fa_rec, ca_rec, ssd_rec, peaks)
 
     print(smi_name_power(), flush=True)
     print(json.dumps({"kernels": [fa_rec, ca_rec, ssd_rec]}), flush=True)

@@ -45,6 +45,12 @@ def extension(verbose: bool = False):
     return _extension
 
 
+def all_cpu(*tensors) -> bool:
+    """Whether a kernel wrapper was given CPU tensors only: it then runs
+    its kernel's plain version."""
+    return all(t.device.type == "cpu" for t in tensors)
+
+
 def check_cuda(name, *tensors):
     """Tensors a kernel wrapper was given that are not all on the CPU must
     all be CUDA tensors: the wrapper then launches its kernel."""

@@ -7,7 +7,8 @@ implementation point on the scheduler's variant axis.
 CPU tensors go to the plain version (``ref.attention_kernel_ref``); CUDA
 tensors launch the kernel or raise. Like the flash kernel it runs bf16 on
 the tensor cores and fp32 on the CUDA cores; ``launches`` counts the
-kernel's launches.
+kernel's launches. Under autograd the call goes through
+``autograd.AttentionFunction``, as the flash kernel's does.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.autograd import AttentionFunction, needs_grad
 from repro_torch.kernels.flash_attention.kernel import check_args
 from repro_torch.kernels.flash_attention.ref import attention_kernel_ref
 
@@ -26,7 +28,15 @@ def chunked_attention_cuda(q, k, v, *, causal=True, window=0):
     """q (B, Hq, Sq, D); k/v (B, Hkv, Skv, D) -> (B, Hq, Sq, D), with the
     flash wrapper's contract: any strides with the head dim contiguous; on
     CUDA the output is a (B, Sq, Hq, D) tensor's transposed view."""
-    if all(t.device.type == "cpu" for t in (q, k, v)):
+    if needs_grad(q, k, v):
+        return AttentionFunction.apply(_chunked_fwd, q, k, v, bool(causal),
+                                       int(window))
+    return _chunked_fwd(q, k, v, causal, window)
+
+
+def _chunked_fwd(q, k, v, causal, window):
+    """The forward: the plain version for CPU tensors, else the kernel."""
+    if build.all_cpu(q, k, v):
         return attention_kernel_ref(q, k, v, causal=causal, window=window)
     build.check_cuda("chunked_attention_cuda", q, k, v)
     check_args(q, k, v, window)

@@ -30,9 +30,11 @@
 // index mod 8, so that a warp's copies read whole rows from device memory
 // and fill shared memory without bank conflicts (the unswizzled layout of
 // 8 x 16-byte core matrices makes a warp either read eight rows at once or
-// write eight times into the same banks). D = 112 (224 bytes a row)
-// and D = 32 do not fill their last atom: the tile is padded to 128 and 64
-// columns, the padding zeroed once and never read. D = 256 (gemma3) spans
+// write eight times into the same banks). D = 112 (224 bytes a row),
+// D = 80 (stablelm-3b, 160 bytes) and D = 32 do not fill their last atom:
+// the tile is padded to 128, 128 and 64 columns, the padding zeroed once
+// and never read (D = 80 runs 5 k-steps of Q K^T and one m64n80k16 for
+// P V). D = 256 (gemma3) spans
 // four atoms: its tiles take 197.6 KB of shared memory a block, and a
 // thread holds the 64 x 256 fp32 O fragment of its warpgroup in 128
 // registers (P V is one m64n256k16, the widest N wgmma takes).
@@ -93,6 +95,7 @@ inline Params make_params(const void* q, const void* k, const void* v,
   switch (d) {                                                              \
     case 32: KERNEL<T, 32><<<grid, attn::NTHREADS, 0, stream>>>(p); break;  \
     case 64: KERNEL<T, 64><<<grid, attn::NTHREADS, 0, stream>>>(p); break;  \
+    case 80: KERNEL<T, 80><<<grid, attn::NTHREADS, 0, stream>>>(p); break;  \
     case 112: KERNEL<T, 112><<<grid, attn::NTHREADS, 0, stream>>>(p); break; \
     case 128: KERNEL<T, 128><<<grid, attn::NTHREADS, 0, stream>>>(p); break; \
     case 256: KERNEL<T, 256><<<grid, attn::NTHREADS, 0, stream>>>(p); break; \
@@ -112,7 +115,7 @@ constexpr int NTHREADS = 128 * NWG;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Head dims are stored padded to whole 64-column swizzle atoms (32 -> 64,
-// 112 -> 128). The padding is zeroed and never read: the k-steps of
+// 80 and 112 -> 128). The padding is zeroed and never read: the k-steps of
 // S = Q K^T stop at D, and P V's N is D.
 template <int D>
 __host__ __device__ constexpr int padded() { return (D + 63) / 64 * 64; }
@@ -365,6 +368,7 @@ cudaError_t launch(void (*kernel)(Params), const Params& p, int batch, int hq,
   switch (d) {                                                                 \
     case 32: return attn::tc::launch<32>(KERNEL<32>, p, batch, hq, stream);    \
     case 64: return attn::tc::launch<64>(KERNEL<64>, p, batch, hq, stream);    \
+    case 80: return attn::tc::launch<80>(KERNEL<80>, p, batch, hq, stream);    \
     case 112: return attn::tc::launch<112>(KERNEL<112>, p, batch, hq, stream); \
     case 128: return attn::tc::launch<128>(KERNEL<128>, p, batch, hq, stream); \
     case 256: return attn::tc::launch<256>(KERNEL<256>, p, batch, hq, stream); \

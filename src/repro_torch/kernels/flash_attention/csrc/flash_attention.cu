@@ -30,8 +30,8 @@
 // Layout: the inputs are read through strides in the (B, S, H, D) layout,
 // so the caller never materialises a transpose; the ragged tail of S is
 // handled by load/store masks, not padding. GQA: the kv head is
-// q_head / group, K/V are never repeated. Head dims 32, 64, 112 (zamba2's
-// shared attention), 128 and 256 (gemma3; the fp32 body's K/V tiles have
+// q_head / group, K/V are never repeated. Head dims 32, 64, 80 (stablelm-3b),
+// 112 (zamba2's shared attention), 128 and 256 (gemma3; the fp32 body's K/V tiles have
 // 16 rows there, attention_common.cuh).
 #include "attention_common.cuh"
 

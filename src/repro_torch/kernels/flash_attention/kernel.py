@@ -6,7 +6,8 @@ CPU tensors go to the plain version (``ref.attention_kernel_ref``: a row
 that sees no key gives 0, as in the kernel); CUDA tensors launch the
 kernel or raise. The kernel runs bf16 on the tensor cores (``wgmma``) and
 fp32 on the CUDA cores, one entry point for both; ``launches`` counts the
-kernel's launches.
+kernel's launches. Under autograd the call goes through
+``autograd.AttentionFunction`` (plain backward, no launch).
 """
 from __future__ import annotations
 
@@ -15,12 +16,13 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.autograd import AttentionFunction, needs_grad
 from repro_torch.kernels.flash_attention.ref import attention_kernel_ref
 
-# the head dims both kernels instantiate (zamba2's shared attention 112,
-# gemma3 256); the smoke configs' 16 runs only on the CPU, through the plain
-# version, and raises here on CUDA
-HEAD_DIMS = (32, 64, 112, 128, 256)
+# the head dims both kernels instantiate (stablelm-3b 80, zamba2's shared
+# attention 112, gemma3 256); the smoke configs' 16 runs only on the CPU,
+# through the plain version, and raises here on CUDA
+HEAD_DIMS = (32, 64, 80, 112, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_GRID_YZ = 65535
 
@@ -64,7 +66,15 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0):
     ``transpose(1, 2)`` view is read in place. On CUDA the output is
     allocated as (B, Sq, Hq, D) and returned as its transposed view, so
     ``.transpose(1, 2)`` gives the model's layout with no copy."""
-    if all(t.device.type == "cpu" for t in (q, k, v)):
+    if needs_grad(q, k, v):
+        return AttentionFunction.apply(_flash_fwd, q, k, v, bool(causal),
+                                       int(window))
+    return _flash_fwd(q, k, v, causal, window)
+
+
+def _flash_fwd(q, k, v, causal, window):
+    """The forward: the plain version for CPU tensors, else the kernel."""
+    if build.all_cpu(q, k, v):
         return attention_kernel_ref(q, k, v, causal=causal, window=window)
     build.check_cuda("flash_attention_cuda", q, k, v)
     check_args(q, k, v, window)

@@ -42,3 +42,70 @@ def attention_kernel_ref(q, k, v, *, causal=True, window=0):
     out = attention_ref(q, k, v, causal=causal, window=window)
     empty = ~_visible(q.shape[2], k.shape[2], causal, window, q.device).any(-1)
     return out.masked_fill(empty[:, None], 0)
+
+
+def _bmm_f32(a, b):
+    """``a.float() @ b.float()`` for 3-D operands batched along dim 0; two
+    bf16 operands on CUDA take cuBLAS's product with fp32 output, which
+    writes no widened copy (each product of two bf16 values is exact in
+    fp32)."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def attention_kernel_bwd_ref(q, k, v, o, do, *, causal=True, window=0,
+                             q_tile=512):
+    """The gradient of :func:`attention_kernel_ref` with respect to q, k
+    and v: (dq, dk, dv) in the inputs' dtypes, computed from the saved q,
+    k, v, the forward's output ``o`` and the output's gradient ``do``, all
+    in the kernels' (B, H, S, D) layout, any strides.
+
+    Blocked over tiles of ``q_tile`` queries, so that no (Sq x Skv) matrix
+    is ever whole: each tile reads only the keys its rows can reach (the
+    causal top, the window's bottom), recomputes its scores and softmax in
+    fp32, then with D = rowsum(dO * O) and dS = P * (dO V^T - D) adds
+    dV += P^T dO, dK += dS^T Q / sqrt(d) and writes dQ = dS K / sqrt(d).
+    The q heads of a GQA group are laid out as extra rows of their kv
+    head's products, so dK and dV sum over the group. A row that sees no
+    key has P = 0 (the kernels' zero output) and a zero gradient."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    delta = (do.float() * o.float()).sum(-1).reshape(b, hkv, g, sq)
+    dq = torch.zeros((b, hkv, g, sq, d), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b * hkv, skv, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b * hkv, skv, d), dtype=torch.float32, device=dev)
+    kb = k.reshape(b * hkv, skv, d)
+    vb = v.reshape(b * hkv, skv, d)
+    qg = q.reshape(b, hkv, g, sq, d)
+    dog = do.reshape(b, hkv, g, sq, d)
+    for a0 in range(0, sq, q_tile):
+        a1 = min(a0 + q_tile, sq)
+        t = a1 - a0
+        hi = min(skv, a1) if causal else skv
+        lo = max(0, a0 - window + 1) if window > 0 else 0
+        if hi <= lo:
+            continue
+        qt = qg[:, :, :, a0:a1].reshape(b * hkv, g * t, d)
+        dot = dog[:, :, :, a0:a1].reshape(b * hkv, g * t, d)
+        kt, vt = kb[:, lo:hi], vb[:, lo:hi]
+        mask = _visible(a1, hi, causal, window, dev)[a0:, lo:]
+        s = _bmm_f32(qt, kt.transpose(1, 2)).view(b * hkv, g, t, hi - lo)
+        s = s.mul_(scale).masked_fill_(~mask, -torch.inf)
+        m = s.amax(-1, keepdim=True).nan_to_num_(neginf=0.0)
+        p = s.sub_(m).exp_()
+        p = p.div_(p.sum(-1, keepdim=True).clamp_(min=1e-30))
+        p = p.view(b * hkv, g * t, hi - lo)
+        dv[:, lo:hi] += p.transpose(1, 2) @ dot.float()
+        dp = _bmm_f32(dot, vt.transpose(1, 2))
+        dlt = delta[:, :, :, a0:a1].reshape(b * hkv, g * t, 1)
+        ds = p.mul_(dp.sub_(dlt))
+        dq[:, :, :, a0:a1] = (ds @ kt.float()).mul_(scale).view(
+            b, hkv, g, t, d)
+        dk[:, lo:hi] += (ds.transpose(1, 2) @ qt.float()).mul_(scale)
+    return (dq.view(b, hq, sq, d).to(q.dtype),
+            dk.view(b, hkv, skv, d).to(k.dtype),
+            dv.view(b, hkv, skv, d).to(v.dtype))

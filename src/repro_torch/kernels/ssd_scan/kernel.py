@@ -9,13 +9,16 @@ one kernel on the CUDA cores. ``launches`` counts calls that launched,
 one per call however many CUDA kernels it runs. Unlike ``ssd_tpu`` the
 wrapper neither pads L nor transposes: the kernels mask the ragged last
 chunk and read every input through its strides (only the last dim of
-each must be contiguous).
+each must be contiguous). Under autograd the call goes through
+``autograd.SSDFunction`` (the chunked plain scan recomputed and
+differentiated, no launch).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.autograd import SSDFunction, needs_grad
 from repro_torch.kernels.ssd_scan.ref import ssd_ref_sequential
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -74,9 +77,17 @@ def ssd_cuda(x, dt, a, bmat, cmat, *, chunk=128, init_state=None):
     ``init_state`` (B, H, P, N) fp32, or starts from 0 where it is None
     (``ssd_tpu`` always starts from 0). Returns (y (B, L, H, P) in x's
     dtype, state (B, H, P, N) fp32), as ``ssd_tpu``."""
+    if needs_grad(x, dt, a, bmat, cmat, init_state):
+        return SSDFunction.apply(_ssd_fwd, chunk, x, dt, a, bmat, cmat,
+                                 init_state)
+    return _ssd_fwd(x, dt, a, bmat, cmat, chunk, init_state)
+
+
+def _ssd_fwd(x, dt, a, bmat, cmat, chunk, init_state):
+    """The forward: the plain version for CPU tensors, else the kernel."""
     inputs = (x, dt, a, bmat, cmat) + (() if init_state is None
                                        else (init_state,))
-    if all(t.device.type == "cpu" for t in inputs):
+    if build.all_cpu(*inputs):
         return ssd_ref_sequential(x, dt, a, bmat, cmat, init_state)
     build.check_cuda("ssd_cuda", *inputs)
     check_args(x, dt, a, bmat, cmat, chunk, init_state)

@@ -1,5 +1,8 @@
-"""Common layers: RMSNorm, RoPE, SwiGLU, embeddings."""
+"""Common layers: RMSNorm, RoPE, SwiGLU, embeddings, logits and
+cross-entropy, dense init."""
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -66,3 +69,36 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
                  compute_dtype: torch.dtype) -> torch.Tensor:
     return table[tokens].to(compute_dtype)
+
+
+def lm_logits(x: torch.Tensor, table_or_head: torch.Tensor, tied: bool
+              ) -> torch.Tensor:
+    """Final projection to the vocab, fp32 logits for loss stability: x
+    (..., D) against a tied table (V, D) or a head (D, V)."""
+    w = table_or_head.float()
+    return x.float() @ (w.T if tied else w)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy; logits (B, S, V), labels (B, S) ints; with
+    ``mask`` (B, S) the mean over the masked-in tokens."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / mask.sum().clamp(min=1)
+    return nll.mean()
+
+
+def init_dense(gen: torch.Generator, shape, scale: float | None = None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """N(0, scale^2) weights on ``gen``'s device, drawn in fp32 and cast;
+    ``scale`` defaults to 1 / sqrt(fan-in), fan-in ``shape[0]``. The
+    numbers differ from the reference's ``jax.random`` draws."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (w * scale).to(dtype)

@@ -44,13 +44,16 @@ def ssd_ref(x, dt, A, B, C, chunk: int = 128, init_state=None):
     seg = torch.cumsum(dtc * A.float(), dim=2)   # (b, nc, Q, h) inclusive
 
     # intra-chunk: y[i] += sum_{j<=i} (C_i.B_j) e^{seg_i - seg_j} dt_j x_j;
-    # the decay is selected by where (never multiplied by the mask), so its
-    # overflow to inf above the diagonal cannot leak
+    # the exponent above the diagonal is -inf before the exp, so the decay
+    # there is 0 and never inf: the reference selects an overflowed inf
+    # away after the product, which its gradient turns into 0 * inf = NaN
+    # for every input once a chunk's decay spans more than e^88
     G = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
-    decay = torch.exp(seg[:, :, :, None, :] - seg[:, :, None, :, :])
     causal = torch.ones(chunk, chunk, dtype=torch.bool,
                         device=x.device).tril()[None, None, :, :, None]
-    M = torch.where(causal, G[..., None] * decay, 0.0)      # (b,nc,i,j,h)
+    decay = torch.exp(torch.where(
+        causal, seg[:, :, :, None, :] - seg[:, :, None, :, :], -torch.inf))
+    M = G[..., None] * decay                                # (b,nc,i,j,h)
     y = torch.einsum("bcijh,bcjhp->bcihp", M * dtc[:, :, None], xc)
     del G, decay, M
 

@@ -36,6 +36,16 @@ layers is a Python loop over the stack dims. Its donated, functional
 cache updates are in-place ``copy_`` / ``index_copy_`` / ``index_fill_``
 on a preallocated cache here: a cache passed to ``forward``,
 ``decode_step`` or ``reset_cache_lane`` is updated in place and returned.
+
+A forward that autograd will differentiate (grad mode on and a parameter
+leaf that requires a gradient, as ``train/step.py``'s are) takes the
+training path: each stacked leaf is ``unbind``-ed once (indexing it per
+layer would make its backward write a zeroed full-size stack per layer),
+and with ``cfg.remat`` each layer runs under
+``torch.utils.checkpoint.checkpoint``, the counterpart of the
+reference's ``jax.checkpoint`` around each scanned layer body. Serving
+takes neither: its op sequence is the one its captured CUDA graph
+replays.
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import embedloss
@@ -304,7 +315,37 @@ class Model(nn.Module):
         """One layer's leaves of a stacked group."""
         return {name: leaf[idx] for name, leaf in tree.items()}
 
-    def _layers(self, params: Params, cache=None):
+    def _picker(self, params: Params, train: bool):
+        """``pick(group, *idx)``: one layer's leaves of a stacked group. On
+        the training path each leaf of a group is unbound once, its stack
+        dims flattened, so that its backward stacks the layers' gradients
+        once; otherwise ``_index``."""
+        if not train:
+            return lambda group, *idx: self._index(params[group], *idx)
+        unbound: dict[str, dict] = {}
+
+        def pick(group, *idx):
+            n = STACK_DIMS[group]
+            if group not in unbound:
+                unbound[group] = {name: leaf.flatten(0, n - 1).unbind(0)
+                                  for name, leaf in params[group].items()}
+            first = next(iter(params[group].values()))
+            flat = int(np.ravel_multi_index(idx, first.shape[:n]))
+            return {name: rows[flat] for name, rows in unbound[group].items()}
+
+        return pick
+
+    @staticmethod
+    def _training(params: Params) -> bool:
+        """Whether autograd will differentiate a forward over ``params``:
+        grad mode on and some leaf requires a gradient."""
+        def leaves(tree):
+            for v in tree.values():
+                yield from leaves(v) if isinstance(v, dict) else (v,)
+        return torch.is_grad_enabled() and any(
+            t.requires_grad for t in leaves(params))
+
+    def _layers(self, params: Params, cache=None, train: bool = False):
         """The layer sequence in order, as (kind, params, cache views,
         window, rolling): ``("attn", p, (k, v), window, rolling)`` for a
         dense layer, a windowed or global layer or a shared attention
@@ -314,8 +355,10 @@ class Model(nn.Module):
         ``("mamba", p, (conv, state), 0, False)`` for a Mamba2 layer;
         ``("dec", p, (k_self, v_self, k_cross, v_cross), 0, False)`` for an
         encoder-decoder's decoder layer (self-attention, cross-attention,
-        MLP). The cache views are None without a cache."""
+        MLP). The cache views are None without a cache; ``train`` picks
+        each layer's leaves as :meth:`_picker` says."""
         c = self.cfg
+        pick = self._picker(params, train)
 
         def views(*keys_idx):
             if cache is None:
@@ -325,37 +368,37 @@ class Model(nn.Module):
         if c.window > 0:
             for si in range(self.n_super):
                 for j in range(c.global_every - 1):
-                    yield ("attn", self._index(params["local"], si, j),
+                    yield ("attn", pick("local", si, j),
                            views(("k_local", (si, j)), ("v_local", (si, j))),
                            c.window, True)
-                yield ("attn", self._index(params["global"], si),
+                yield ("attn", pick("global", si),
                        views(("k_global", si), ("v_global", si)), 0, False)
             for t in range(self.n_tail):
-                yield ("attn", self._index(params["tail"], t),
+                yield ("attn", pick("tail", t),
                        views(("k_tail", t), ("v_tail", t)), c.window, True)
         elif c.kind in DENSE_KINDS:
             for i in range(c.n_layers):
-                yield ("attn", self._index(params["layers"], i),
+                yield ("attn", pick("layers", i),
                        views(("k", i), ("v", i)), 0, False)
         elif c.kind == "ssm":
             for i in range(c.n_layers):
-                yield ("mamba", self._index(params["layers"], i),
+                yield ("mamba", pick("layers", i),
                        views(("conv", i), ("state", i)), 0, False)
         elif c.kind in ENCDEC_KINDS:
             for i in range(c.n_layers):
-                yield ("dec", self._index(params["dec"], i),
+                yield ("dec", pick("dec", i),
                        views(("k_self", i), ("v_self", i), ("k_cross", i),
                              ("v_cross", i)), 0, False)
         else:
             for si in range(self.n_super):
                 for j in range(c.shared_attn_every):
-                    yield ("mamba", self._index(params["mamba"], si, j),
+                    yield ("mamba", pick("mamba", si, j),
                            views(("conv", (si, j)), ("state", (si, j))),
                            0, False)
                 yield ("attn", params["shared_attn"],
                        views(("k_shared", si), ("v_shared", si)), 0, False)
             for t in range(self.n_tail):
-                yield ("mamba", self._index(params["tail"], t),
+                yield ("mamba", pick("tail", t),
                        views(("conv_tail", t), ("state_tail", t)), 0, False)
 
     # ------------------------------------------------------------- forward
@@ -387,25 +430,47 @@ class Model(nn.Module):
         s = x.shape[1]
         sin, cos = rope_table(torch.arange(s, device=x.device), c.hd,
                               c.rope_theta)
-        for kind, p, views, window, rolling in self._layers(params, cache):
-            if kind == "mamba":
-                h = rms_norm(x, p["ln_ssm"], c.norm_eps)
-                y, (conv, state) = mamba_block(
-                    p, h, c.ssm, use_kernel=c.ssd_impl == "kernel")
-                x = x + y
-                if views is not None:
-                    views[0].copy_(conv)
-                    views[1].copy_(state)
-                continue
-            x, kv = self._attn_train(p, x, sin, cos, window)
-            if kind == "dec":
-                x, cross = self._attn_nocausal(p, x, kv_from=enc)
-                kv = kv + cross
-            if views is not None:
-                for dst, src in zip(views, kv):
-                    _place(dst, src, rolling)
-            x = self._ffn(p, x)
+        train = self._training(params)
+        remat = c.remat and train and cache is None
+        for kind, p, views, window, rolling in self._layers(params, cache,
+                                                            train):
+            if remat:
+                x = checkpoint(self._layer, kind, p, views, window, rolling,
+                               x, sin, cos, enc, use_reentrant=False)
+            else:
+                x = self._layer(kind, p, views, window, rolling, x, sin, cos,
+                                enc)
         return rms_norm(x, params["ln_final"], c.norm_eps)
+
+    def _layer(self, kind, p, views, window, rolling, x, sin, cos, enc):
+        """One entry of :meth:`_layers` over the full sequence: x (B, S, D)
+        -> x, writing its cache material into ``views`` when given."""
+        c = self.cfg
+        if kind == "mamba":
+            h = rms_norm(x, p["ln_ssm"], c.norm_eps)
+            y, (conv, state) = mamba_block(
+                p, h, c.ssm, use_kernel=c.ssd_impl == "kernel")
+            if views is not None:
+                views[0].copy_(conv)
+                views[1].copy_(state)
+            return x + y
+        x, kv = self._attn_train(p, x, sin, cos, window)
+        if kind == "dec":
+            x, cross = self._attn_nocausal(p, x, kv_from=enc)
+            kv = kv + cross
+        if views is not None:
+            for dst, src in zip(views, kv):
+                _place(dst, src, rolling)
+        return self._ffn(p, x)
+
+    def loss(self, params: Params, batch: dict) -> torch.Tensor:
+        """Mean next-token cross-entropy of the batch's ``labels`` (ignored
+        where < 0) over the forward's hidden states, against the tied
+        embedding table, its padding columns masked: the reference's
+        ``Model.loss``, for every family."""
+        x = self.forward(params, batch)
+        return embedloss.lm_loss(x, params["embed"], batch["labels"],
+                                 valid_vocab=self.cfg.vocab)
 
     def encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
         """The encoder (whisper): frames (B, T, D) -> its normed output
@@ -420,11 +485,20 @@ class Model(nn.Module):
             self._enc_pos[key] = _sinusoid(key[0], c.d_model).to(
                 frames.device, cdt)
         h = frames.to(cdt) + self._enc_pos[key][None]
+        train = self._training(params)
+        pick = self._picker(params, train)
         for i in range(c.n_enc_layers):
-            p = self._index(params["enc"], i)
-            h, _ = self._attn_nocausal(p, h)
-            h = self._ffn(p, h)
+            p = pick("enc", i)
+            if c.remat and train:
+                h = checkpoint(self._enc_layer, p, h, use_reentrant=False)
+            else:
+                h = self._enc_layer(p, h)
         return rms_norm(h, params["ln_enc_final"], c.norm_eps)
+
+    def _enc_layer(self, p, h):
+        """One encoder layer: non-causal self-attention and the MLP."""
+        h, _ = self._attn_nocausal(p, h)
+        return self._ffn(p, h)
 
     def cross_kv(self, params: Params, enc_out: torch.Tensor):
         """Every decoder layer's cross-attention K and V of the encoder's

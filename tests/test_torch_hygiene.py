@@ -70,6 +70,8 @@ def test_kernel_path_has_no_try_fallback():
     paths = sorted((PORT / "kernels").rglob("*.py")) + sorted(
         (PORT / "serve").rglob("*.py"))
     assert PORT / "serve" / "graph.py" in paths
+    # the autograd Functions every wrapper goes through under autograd
+    assert PORT / "kernels" / "autograd.py" in paths
     for path in paths:
         tree = ast.parse(path.read_text(), str(path))
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), path
@@ -93,6 +95,21 @@ def test_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         build.extension()
     assert model.init(0, device="cpu")["embed"].device.type == "cpu"
+    # training: the state, the step and the driver
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import (
+        TrainConfig, init_train_state, make_train_step)
+    tcfg = TrainConfig()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(model, 0, tcfg)
+    state = init_train_state(model, 0, tcfg, device="cpu")
+    step = make_train_step(model, tcfg)
+    meta = {"tokens": torch.zeros(1, 4, dtype=torch.int32, device="meta"),
+            "labels": torch.zeros(1, 4, dtype=torch.int32, device="meta")}
+    with pytest.raises(ValueError, match="move the batch"):
+        step(state, meta)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--smoke", "--steps", "1"])
 
 
 def test_kernel_wrapper_raises_instead_of_falling_back():
