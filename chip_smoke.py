@@ -232,9 +232,44 @@ Then whisper is freed and the training slice runs, from its own generator:
             a restore into a fresh state and steps 5-8 again: every
             restored leaf, and the resumed losses and parameters, equal
             the uninterrupted run's bit for bit. Each logs its seconds.
+Then the multi-device slice, from its own generator:
+  offset_kernels : both attention kernels at phi3's shape (4, 40, 10,
+            2048, 128), fp32 and bf16, the queries cut into 4 slices of
+            512 at offsets 0, 512, 1024 and 1536, each against the whole
+            K/V (the context-parallel shard's call): each slice against
+            the plain version at ``TOL``, the concatenation against the
+            unsplit call, 4 launches per kernel and dtype; each slice's
+            time and bound. The same at gemma3-12b's windowed layers
+            (4, 16, 8, 2048, 256), window 1024, whose window starts
+            inside the later slices.
+  mesh    : a one-rank NCCL group and a (1, 1) ("data", "model") mesh on
+            the card, every sharded branch taken (each axis has size 1):
+            phi3-medium-14b at full width, the prefill of 4 x 2048 under
+            the mesh against the no-mesh prefill (last hidden state within
+            ``PREFILL_REL_TOL``, every cached K/V row within
+            ``KV_REL_TOL``, exactly 40 flash launches) and 4 eager greedy
+            decode steps through the sharded decode attention, tokens
+            equal to the no-mesh ones, with both arms' times and idle
+            shares; kimi-k2's MoE layer (1 layer, full width) under the
+            mesh at T 8192 (a2a) and T 4 (the decode cells' 2-D psum, and
+            experts over both axes) against ``moe_local`` within
+            ``MOE_REL_TOL``; one zamba2-7b Mamba2 block at (4, 2048) with
+            the SSD kernel on each rank's heads against the no-mesh block
+            (y ``SSD_Y_REL_TOL``, state ``SSD_STATE_REL_TOL``); and
+            stablelm-3b's loss and gradients of one microbatch through the
+            vocab-parallel loss Function with ``fsdp_params`` and
+            ``zero_grad_accum`` on, against the no-mesh ones (the train
+            gates, every gradient nonzero). The group is destroyed after.
+  dryrun  : ``python -m repro_torch.launch.dryrun`` for phi3-medium-14b's
+            decode_32k and train_4k cells on the (16, 16) mesh over the
+            fake backend, two subprocesses started after the mesh phase
+            (the card's phases are timed on an idle host), each bounded
+            at 300 s: exit 0, and each cell's per-device
+            bytes, FLOPs, collective bytes by kind and peak logged.
 Then the card's name and power limit, one JSON line of kernel records
 (each with its body per dtype, ``design``, its TFLOP/s and its share of
-the bound, and ``train_launches``, a training step's launches), and the
+the bound, ``train_launches``, a training step's launches, and
+``q_offset`` and ``q_offset_window``, the offset slices), and the
 result line. Any failure raises and exits non-zero; without a
 CUDA device it exits 1 before any phase.
 """
@@ -247,6 +282,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import re
 import shutil
 import signal
@@ -296,9 +332,11 @@ from repro_torch.pipeline.stages import model_stage_builder  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     AdmissionPlanner, Request, ServeEngine, SimClock)
 from repro_torch.serve.graph import CapturedStep  # noqa: E402
+from repro_torch.sharding import rules, use_ctx  # noqa: E402
 from repro_torch.train import (  # noqa: E402
     OptConfig, TrainConfig, init_train_state, make_train_step)
 from repro_torch.train.optimizer import tree_leaves, tree_map  # noqa: E402
+from repro_torch.train import step as train_step_lib  # noqa: E402
 
 # b, hq, hkv, sq, skv, d, causal, window (tests/test_kernels.py FLASH_CASES;
 # its Pallas block sizes do not apply to this kernel)
@@ -518,6 +556,17 @@ PIPE_B = (2, 2)
 # a bf16 GEMM (M = N = K) and a device-to-device copy (bytes) that time the
 # card's reachable rates beside the class's datasheet ones
 RATE_GEMM, RATE_COPY_BYTES = 8192, 1 << 30
+# the multi-device slice: query slices of phi3's prefill attention, eager
+# decode steps under the (1, 1) mesh, zamba2's Mamba2 block (batch,
+# length), and the dry-run's cells, each bounded at DRYRUN_TIMEOUT_S
+OFFSET_SLICES = 4
+OFFSET_CASES = (("phi3_causal", PHI3_ATTN, 0),
+                ("gemma3_window", GEMMA_ATTN, GEMMA_WINDOW))
+MESH_DECODE_STEPS = 4
+MESH_MAMBA = (4, 2048)
+DRYRUN_CELLS = (("phi3-medium-14b", "decode_32k"),
+                ("phi3-medium-14b", "train_4k"))
+DRYRUN_TIMEOUT_S = 300
 SEED = 0
 DEVICE = "cuda"
 
@@ -3188,8 +3237,8 @@ def attention_detached():
     whose output autograd cannot reach q, k and v through."""
     saved = fa_ops.flash_attention_cuda
     fa_ops.flash_attention_cuda = \
-        lambda q, k, v, *, causal, window: fa._flash_fwd(q, k, v, causal,
-                                                         window)
+        lambda q, k, v, *, causal, window, q_offset: fa._flash_fwd(
+            q, k, v, causal, window, q_offset)
     try:
         yield
     finally:
@@ -3436,6 +3485,351 @@ def free_model(arch: str) -> None:
         after_gb=torch.cuda.memory_allocated() / 1e9)
 
 
+# ------------------------------------------------------ multi-device slice
+def offset_work(b, hq, hkv, n, off, d, window: int = 0) -> tuple[int, int]:
+    """(flops, bytes) of a causal query slice of ``n`` rows at offset
+    ``off``: 4 D flops for each pair the mask shows (row r sees min(r + 1,
+    w) keys under a ``window`` of w, r + 1 without one); the slice's q and
+    o and the keys and values it reaches, each moved once in bf16."""
+    pairs = sum(min(r + 1, window or r + 1) for r in range(off, off + n))
+    keys = off + n - max(0, off - window + 1 if window else 0)
+    return 4 * b * hq * pairs * d, 2 * b * d * (2 * hq * n + 2 * hkv * keys)
+
+
+def phase_offset_kernels(gen, peaks, fa_rec, ca_rec) -> None:
+    """Both attention kernels with the queries cut into ``OFFSET_SLICES``
+    slices, each at its offset against the whole K/V, on each of
+    ``OFFSET_CASES`` (phi3's causal prefill shape, and gemma3-12b's
+    windowed layers, whose window starts inside a slice): each slice
+    against the plain version (``TOL``), their concatenation against the
+    unsplit call, ``OFFSET_SLICES`` launches per kernel, case and dtype;
+    each slice's time against its bound."""
+    t0 = time.perf_counter()
+    for case, shape, window in OFFSET_CASES:
+        b, hq, hkv, s, d = shape
+        n = s // OFFSET_SLICES
+        out = {"flash": {}, "chunked": {}}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(gen, b, hq, hkv, s, s, d, dtype)
+            for name, fn in (("flash", fa.flash_attention_cuda),
+                             ("chunked", ca.chunked_attention_cuda)):
+                whole = fn(q, k, v, causal=True, window=window)
+                reset_launches()
+                parts = [fn(q[:, :, i * n:(i + 1) * n], k, v, causal=True,
+                            window=window, q_offset=i * n)
+                         for i in range(OFFSET_SLICES)]
+                count = launch_counts()[f"{name}_attention"]
+                require(count == OFFSET_SLICES,
+                        f"{name} {case}: {count} launches for "
+                        f"{OFFSET_SLICES} slices")
+                slices = []
+                for i, part in enumerate(parts):
+                    qs = q[:, :, i * n:(i + 1) * n]
+                    err = max_err(part, attention_kernel_ref(
+                        qs, k, v, causal=True, window=window,
+                        q_offset=i * n))
+                    require(bool(torch.isfinite(part).all())
+                            and err < TOL[dtype],
+                            f"{name} {case} {dtype} slice at {i * n}: "
+                            f"error {err}")
+                    ms = time_ms(lambda: fn(qs, k, v, causal=True,
+                                            window=window, q_offset=i * n),
+                                 reps=30 if dtype == torch.bfloat16 else 5)
+                    flops, nbytes = offset_work(b, hq, hkv, n, i * n, d,
+                                                window)
+                    bound_ms, bound_by = bound(flops, nbytes, peaks)
+                    slices.append({"q_offset": i * n, "max_abs_err": err,
+                                   "ms": ms, "bound_ms": bound_ms,
+                                   "bound_by": bound_by,
+                                   "share_of_bound": bound_ms / ms})
+                cat_err = max_err(torch.cat(parts, dim=2), whole)
+                require(cat_err < TOL[dtype],
+                        f"{name} {case} {dtype}: the slices differ from the "
+                        f"unsplit call by {cat_err}")
+                whole_ms = time_ms(
+                    lambda: fn(q, k, v, causal=True, window=window),
+                    reps=30 if dtype == torch.bfloat16 else 5)
+                out[name][str(dtype).removeprefix("torch.")] = {
+                    "slices": slices, "concat_vs_unsplit_max_abs_err": cat_err,
+                    "unsplit_ms": whole_ms, "launches": count}
+            del q, k, v
+        key = "q_offset" if not window else "q_offset_window"
+        for rec, name in ((fa_rec, "flash"), (ca_rec, "chunked")):
+            rec[key] = {"shape": list(shape), "window": window,
+                        "slices": OFFSET_SLICES, **out[name]}
+        log(phase="offset_kernels", case=case, shape=list(shape),
+            window=window, slice_rows=n, seconds=time.perf_counter() - t0,
+            **out)
+
+
+def whole(x):
+    """A DTensor's whole value (every axis has size 1 here: a view)."""
+    return x.full_tensor() if rules.is_dtensor(x) else x
+
+
+def phase_mesh(gen, fa_rec) -> None:
+    """The sharded branches on a (1, 1) mesh over a one-rank NCCL group:
+    phi3's prefill and decode, kimi-k2's MoE layer, zamba2's Mamba2 block
+    and stablelm-3b's sharded loss and gradients, each against its
+    no-mesh path. The group exists in this phase only."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_local_mesh(model_axis=1)
+        log(phase="mesh_group", backend=dist.get_backend(),
+            mesh=dict(rules.mesh_shape(mesh)), device=mesh.device_type)
+        mesh_phi3(gen, mesh, fa_rec)
+        mesh_kimi(gen, mesh)
+        mesh_zamba(gen, mesh)
+        mesh_stablelm(gen, mesh)
+    finally:
+        dist.destroy_process_group()
+    log(phase="mesh", seconds=time.perf_counter() - t0)
+
+
+def mesh_phi3(gen, mesh, fa_rec) -> None:
+    cfg = get_config("phi3-medium-14b")
+    model = Model(cfg)
+    params = model.init(seed=SEED, device=DEVICE)
+    b, _, _, s, _ = PHI3_ATTN
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                     device=DEVICE)}
+
+    def decode(p, cache, last):
+        tok = embedloss.greedy(last, p["embed"], valid_vocab=cfg.vocab)
+        toks, times = [whole(tok)], []
+        for _ in range(MESH_DECODE_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tok, cache = model.decode_step(p, cache, tok)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            toks.append(whole(tok))
+        return torch.stack(toks, dim=1), times
+
+    def timed_prefill(p):
+        model.prefill(p, batch, CACHE_LEN)           # warm-up
+        reset_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cache, last = model.prefill(p, batch, CACHE_LEN)
+        torch.cuda.synchronize()
+        return cache, last, time.perf_counter() - t1, fa.launches
+
+    with torch.no_grad():
+        cache, last, prefill_s, _ = timed_prefill(params)
+        plain_prof = _profile(lambda: model.prefill(params, batch,
+                                                    CACHE_LEN))
+        toks, times = decode(params, cache, last)
+        with use_ctx(mesh):
+            pd = rules.tree_map2(rules.distribute, params,
+                                 model.param_axes())
+            mcache, mlast, mprefill_s, launches = timed_prefill(pd)
+            mesh_prof = _profile(lambda: model.prefill(pd, batch,
+                                                       CACHE_LEN))
+            mcache_whole = {k: whole(v) for k, v in mcache.items()}
+            rel = max_err(whole(mlast), last) / float(
+                last.float().abs().max())
+            kv, kv_late, kv_layer = kv_rel_err(mcache_whole, cache, s)
+            del mcache_whole
+            mtoks, mtimes = decode(pd, mcache, mlast)
+            step_prof = _profile(lambda: model.decode_step(
+                pd, mcache, mtoks[:, -1]))
+        plain_step_prof = _profile(lambda: model.decode_step(
+            params, cache, toks[:, -1]))
+    require(launches == cfg.n_layers,
+            f"mesh prefill: {launches} flash launches, not {cfg.n_layers}")
+    require(rel <= PREFILL_REL_TOL,
+            f"mesh prefill's last hidden state: relative error {rel}")
+    require(kv <= KV_REL_TOL, f"mesh prefill's K/V: relative error {kv} "
+            f"(layer {kv_layer})")
+    require(torch.equal(mtoks, toks), "mesh decode tokens differ from the "
+            f"no-mesh ones: {mtoks.tolist()} vs {toks.tolist()}")
+    fa_rec["launches_by_path"][f"{cfg.name} mesh prefill"] = launches
+
+    def brief(prof):
+        return {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                     "idle_share", "host_launches")}
+
+    log(phase="mesh_prefill_decode", arch=cfg.name, batch=b, prompt=s,
+        flash_attention_launches=launches, rel_err_vs_no_mesh=rel,
+        rel_err_limit=PREFILL_REL_TOL, kv_rel_err=kv,
+        kv_rel_err_late_half=kv_late, kv_rel_err_limit=KV_REL_TOL,
+        prefill_s=mprefill_s, no_mesh_prefill_s=prefill_s,
+        prefill_profile=brief(mesh_prof),
+        no_mesh_prefill_profile=brief(plain_prof),
+        decode_step_ms_p50=statistics.median(mtimes) * 1e3,
+        no_mesh_decode_step_ms_p50=statistics.median(times) * 1e3,
+        decode_step_profile=brief(step_prof),
+        no_mesh_decode_step_profile=brief(plain_step_prof),
+        tokens=mtoks[0].tolist(), tokens_equal=True)
+    del params, pd, cache, mcache, model
+    free_model(cfg.name)
+
+
+def mesh_kimi(gen, mesh) -> None:
+    cfg, model, params, _ = init_model("kimi-k2-1t-a32b")
+    mcfg, d = cfg.moe, cfg.d_model
+    layer = params["layers"]
+    p = {"router": layer["router"][0], "w_gate": layer["moe_gate"][0],
+         "w_up": layer["moe_up"][0], "w_down": layer["moe_down"][0]}
+    axes = model.param_axes()["layers"]
+    names = {"router": "router", "w_gate": "moe_gate", "w_up": "moe_up",
+             "w_down": "moe_down"}
+    x = torch.randn((MOE_TIMED_T[0], d), generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    cases = (("a2a", MOE_TIMED_T[0], None),
+             ("decode_2d", MOE_TIMED_T[1], {"batch": ("data",),
+                                            "experts": ("model",),
+                                            "expert_ff": ("pod", "data")}),
+             ("psum_multi", MOE_TIMED_T[1], {"experts": ("data", "model"),
+                                             "batch": ()}))
+    out = {}
+    for name, t, over in cases:
+        xt = x[:t]
+        ref = moe.moe_local(xt, p, mcfg)
+        x3 = xt.reshape(4, t // 4, d)
+        with torch.no_grad(), use_ctx(mesh, rules=over):
+            pd = {k: rules.distribute(v, axes[names[k]][1:])
+                  for k, v in p.items()}
+            y = whole(moe.moe_apply(x3, pd, mcfg)).reshape(t, d)
+            ms = time_ms(lambda: moe.moe_apply(x3, pd, mcfg), reps=10)
+        rel = rel_max(y, ref)
+        require(rel <= MOE_REL_TOL,
+                f"{cfg.name} mesh MoE {name} vs moe_local: {rel}")
+        out[name] = {"tokens": t, "rel_err_vs_moe_local": rel, "ms": ms,
+                     "moe_local_ms": time_ms(
+                         lambda: moe.moe_local(xt, p, mcfg), reps=10)}
+    log(phase="mesh_moe", arch=cfg.name, rel_err_limit=MOE_REL_TOL, **out)
+    del cfg, model, params, p
+    free_model("kimi-k2-1t-a32b")
+
+
+def mesh_zamba(gen, mesh) -> None:
+    full = get_config("zamba2-7b")
+    cfg = dataclasses.replace(full, n_layers=full.shared_attn_every)
+    model = Model(cfg)
+    params = model.init(seed=SEED, device=DEVICE)
+    lp = {k: v[0, 0] for k, v in params["mamba"].items()}
+    axes = {k: v[2:] for k, v in model.param_axes()["mamba"].items()}
+    b, length = MESH_MAMBA
+    h = torch.randn((b, length, cfg.d_model), generator=gen,
+                    device=DEVICE).to(torch.bfloat16)
+    with torch.no_grad():
+        y0, (_, s0) = ssm.mamba_block(lp, h, cfg.ssm, use_kernel=True)
+        with use_ctx(mesh):
+            lpd = {k: rules.distribute(v, axes[k]) for k, v in lp.items()}
+            reset_launches()
+            y1, (_, s1) = ssm.mamba_block(lpd, h, cfg.ssm, use_kernel=True)
+            launches = sk.launches
+    y_rel, s_rel = rel_max(whole(y1), y0), rel_max(whole(s1), s0)
+    require(launches == 1, f"mesh Mamba2 block: {launches} SSD launches")
+    require(y_rel <= SSD_Y_REL_TOL and s_rel <= SSD_STATE_REL_TOL,
+            f"mesh Mamba2 block vs no-mesh: y {y_rel}, state {s_rel}")
+    log(phase="mesh_mamba", arch=full.name, shape=[b, length],
+        ssd_launches=launches, y_rel_err=y_rel, state_rel_err=s_rel,
+        limits=[SSD_Y_REL_TOL, SSD_STATE_REL_TOL])
+    del params, lp, lpd, model
+    free_model(full.name)
+
+
+def mesh_stablelm(gen, mesh) -> None:
+    cfg = get_config(TRAIN_ARCH)
+    model = Model(cfg)
+    params = model.init(seed=SEED, device=DEVICE)
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_BATCH // TRAIN_MB,
+                                          TRAIN_SEQ + 1), generator=gen,
+                           device=DEVICE)
+    batch = {"tokens": tokens[:, :-1].int(), "labels": tokens[:, 1:].int()}
+    names = leaf_names(params)
+    plain_loss, plain = loss_and_grads(model, params, batch)
+    norms = [float(g.float().norm()) for g in plain]
+    tcfg = TrainConfig(opt=OptConfig(**TRAIN_OPT), fsdp_params=True,
+                       zero_grad_accum=True)
+    with use_ctx(mesh):
+        axes = train_step_lib.train_state_axes(model, tcfg)
+        pd = train_step_lib.distribute_state(params, axes["params"])
+        acc = train_step_lib.shardings_of(
+            pd, train_step_lib.grad_accum_axes(model))
+        reset_launches()
+        live = tree_map(lambda t: t.detach().requires_grad_(), pd)
+        mloss = model.loss(live, batch)
+        grads = torch.autograd.grad(mloss, tree_leaves(live),
+                                    allow_unused=True, materialize_grads=True)
+        loss = float(whole(mloss.detach()))
+        grads = train_step_lib._constrain(list(grads), tree_leaves(acc))
+        launches = fa.launches
+        grads = [whole(g) for g in grads]
+    rel = {n: float((g.float() - q.float()).norm()) / max(nm, 1e-30)
+           for n, g, q, nm in zip(names, grads, plain, norms)}
+    zero = [n for n, g in zip(names, grads) if not bool(g.any())]
+    loss_rel = abs(loss - plain_loss) / abs(plain_loss)
+    require(loss_rel <= TRAIN_LOSS_REL_TOL and not zero
+            and within(rel.values(), TRAIN_GRAD_REL_TOL),
+            f"{cfg.name}: the sharded loss and gradients against the "
+            f"no-mesh ones: loss {loss_rel}, zero {zero}, {rel}")
+    log(phase="mesh_train_grads", arch=cfg.name, loss=loss,
+        no_mesh_loss=plain_loss, loss_rel_err=loss_rel,
+        grad_rel_err=rel, zero_grad_leaves=zero, flash_launches=launches,
+        limits=[TRAIN_LOSS_REL_TOL, TRAIN_GRAD_REL_TOL])
+    del params, pd, live, mloss, grads, plain, model
+    free_model(cfg.name)
+
+
+def start_dryruns() -> list:
+    """The dry-run's cells as subprocesses on the host's cores (no device:
+    every tensor is on ``meta``)."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--force"], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        procs[-1].cell = (arch, shape)
+        procs[-1].started = time.perf_counter()
+    return procs
+
+
+def phase_dryrun(procs) -> None:
+    """Each dry-run cell exits 0 within ``DRYRUN_TIMEOUT_S`` of its start
+    and writes its record; per-device bytes, FLOPs, collective bytes by
+    kind and the peak are logged."""
+    from repro_torch.launch import dryrun
+
+    cells = {}
+    for proc in procs:
+        arch, shape = proc.cell
+        left = DRYRUN_TIMEOUT_S - (time.perf_counter() - proc.started)
+        try:
+            text = proc.communicate(timeout=max(left, 1))[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise RuntimeError(f"chip_smoke check failed: dry-run {arch} "
+                               f"{shape} passed {DRYRUN_TIMEOUT_S} s")
+        tail = "\n".join(line for line in text.splitlines()
+                         if "arn" not in line)[-2000:]
+        require(proc.returncode == 0,
+                f"dry-run {arch} {shape} exit {proc.returncode}: {tail}")
+        rec = json.loads(dryrun.cell_path(arch, shape, False).read_text())
+        true = rec["true"]
+        cells[f"{arch} {shape}"] = {
+            "mesh": rec["mesh"], "devices": rec["devices"],
+            "seconds": time.perf_counter() - proc.started,
+            **{k: true.get(k) for k in (
+                "wall_s", "param_bytes", "argument_bytes", "output_bytes",
+                "flops", "kernel_flops", "collectives", "peak",
+                "peak_reason")}}
+    log(phase="dryrun", cells=cells)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3573,6 +3967,23 @@ def main() -> int:
     phase_stablelm_kernels(train_gen, peaks, fa_rec, ca_rec)
     phase_grad(train_gen)
     phase_train(fa_rec, ca_rec, ssd_rec, peaks)
+
+    # the multi-device slice, from its own generator; the dry-run's cells
+    # start once the card's phases are done, so the host's cores are not
+    # shared while those are timed
+    mesh_gen = torch.Generator(device=DEVICE)
+    mesh_gen.manual_seed(SEED + 4)
+    dryruns = []
+    try:
+        phase_offset_kernels(mesh_gen, peaks, fa_rec, ca_rec)
+        phase_mesh(mesh_gen, fa_rec)
+        dryruns = start_dryruns()
+        phase_dryrun(dryruns)
+    finally:
+        for proc in dryruns:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
     print(smi_name_power(), flush=True)
     print(json.dumps({"kernels": [fa_rec, ca_rec, ssd_rec]}), flush=True)

@@ -34,23 +34,24 @@ def needs_grad(*tensors) -> bool:
 
 
 class AttentionFunction(torch.autograd.Function):
-    """``apply(fwd, q, k, v, causal, window)`` -> ``fwd(q, k, v, causal,
-    window)``, the kernels' layout (B, H, S, D); the backward is
-    :func:`attention_kernel_bwd_ref`."""
+    """``apply(fwd, q, k, v, causal, window, q_offset)`` -> ``fwd(q, k, v,
+    causal, window, q_offset)``, the kernels' layout (B, H, S, D); the
+    backward is :func:`attention_kernel_bwd_ref`."""
 
     @staticmethod
-    def forward(ctx, fwd, q, k, v, causal, window):
-        o = fwd(q, k, v, causal, window)
+    def forward(ctx, fwd, q, k, v, causal, window, q_offset):
+        o = fwd(q, k, v, causal, window, q_offset)
         ctx.save_for_backward(q, k, v, o)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
         dq, dk, dv = attention_kernel_bwd_ref(
-            q, k, v, o, do, causal=ctx.causal, window=ctx.window)
-        return None, dq, dk, dv, None, None
+            q, k, v, o, do, causal=ctx.causal, window=ctx.window,
+            q_offset=ctx.q_offset)
+        return None, dq, dk, dv, None, None, None
 
 
 class SSDFunction(torch.autograd.Function):

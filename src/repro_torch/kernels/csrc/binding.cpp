@@ -13,14 +13,14 @@ cudaError_t flash_attention_fwd_launch(
     int batch, int sq, int skv, int hq, int hkv, int d,
     const int64_t* q_strides, const int64_t* k_strides,
     const int64_t* v_strides, const int64_t* o_strides,
-    int causal, int window, float scale, cudaStream_t stream);
+    int causal, int window, int q_off, float scale, cudaStream_t stream);
 
 cudaError_t chunked_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* o, int dtype,
     int batch, int sq, int skv, int hq, int hkv, int d,
     const int64_t* q_strides, const int64_t* k_strides,
     const int64_t* v_strides, const int64_t* o_strides,
-    int causal, int window, float scale, cudaStream_t stream);
+    int causal, int window, int q_off, float scale, cudaStream_t stream);
 
 cudaError_t ssd_scan_fwd_launch(
     const void* x, const float* dt, const float* a, const void* bm,
@@ -45,7 +45,8 @@ std::array<int64_t, 3> bsh_strides(const torch::Tensor& t) {
 void attention_fwd(AttnLaunch launch, const char* name,
                    const torch::Tensor& q, const torch::Tensor& k,
                    const torch::Tensor& v, const torch::Tensor& o,
-                   bool causal, int64_t window, double scale) {
+                   bool causal, int64_t window, double scale,
+                   int64_t q_offset) {
   const c10::cuda::CUDAGuard guard(q.device());
   const auto qs = bsh_strides(q), ks = bsh_strides(k), vs = bsh_strides(v),
              os = bsh_strides(o);
@@ -54,23 +55,26 @@ void attention_fwd(AttnLaunch launch, const char* name,
       q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dtype,
       q.size(0), q.size(2), k.size(2), q.size(1), k.size(1), q.size(3),
       qs.data(), ks.data(), vs.data(), os.data(), causal, window,
-      static_cast<float>(scale), c10::cuda::getCurrentCUDAStream().stream());
+      static_cast<int>(q_offset), static_cast<float>(scale),
+      c10::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == cudaSuccess, name, " kernel launch failed: ",
               cudaGetErrorString(err));
 }
 
 void flash_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
                          const torch::Tensor& v, const torch::Tensor& o,
-                         bool causal, int64_t window, double scale) {
+                         bool causal, int64_t window, double scale,
+                         int64_t q_offset) {
   attention_fwd(&flash_attention_fwd_launch, "flash_attention", q, k, v, o,
-                causal, window, scale);
+                causal, window, scale, q_offset);
 }
 
 void chunked_attention_fwd(const torch::Tensor& q, const torch::Tensor& k,
                            const torch::Tensor& v, const torch::Tensor& o,
-                           bool causal, int64_t window, double scale) {
+                           bool causal, int64_t window, double scale,
+                           int64_t q_offset) {
   attention_fwd(&chunked_attention_fwd_launch, "chunked_attention", q, k, v,
-                o, causal, window, scale);
+                o, causal, window, scale, q_offset);
 }
 
 // Data pointer of a float32 tensor, or null where it is empty.

@@ -71,6 +71,7 @@ struct Params {
   int64_t v_sb, v_ss, v_sh;
   int64_t o_sb, o_ss, o_sh;
   int sq, skv, group, causal, window;
+  int q_off;                         // absolute position of query row 0
   float scale;
 };
 
@@ -78,7 +79,7 @@ inline Params make_params(const void* q, const void* k, const void* v,
                           void* o, int sq, int skv, int hq, int hkv,
                           const int64_t* q_strides, const int64_t* k_strides,
                           const int64_t* v_strides, const int64_t* o_strides,
-                          int causal, int window, float scale) {
+                          int causal, int window, int q_off, float scale) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.q_sb = q_strides[0]; p.q_ss = q_strides[1]; p.q_sh = q_strides[2];
@@ -86,7 +87,7 @@ inline Params make_params(const void* q, const void* k, const void* v,
   p.v_sb = v_strides[0]; p.v_ss = v_strides[1]; p.v_sh = v_strides[2];
   p.o_sb = o_strides[0]; p.o_ss = o_strides[1]; p.o_sh = o_strides[2];
   p.sq = sq; p.skv = skv; p.group = hq / hkv;
-  p.causal = causal; p.window = window; p.scale = scale;
+  p.causal = causal; p.window = window; p.q_off = q_off; p.scale = scale;
   return p;
 }
 
@@ -163,19 +164,23 @@ __device__ __forceinline__ void zero_pad(uint32_t dst) {
 }
 
 // Whether any (query row, kv position) pair of the 64 rows from r0 and the
-// BK positions from k0 is masked: only such tiles pay for the mask.
+// BK positions from k0 is masked: only such tiles pay for the mask. Query
+// row r sits at position r + q_off.
 __device__ __forceinline__ bool tile_needs_mask(const Params& p, int r0,
                                                 int k0) {
-  return k0 + BK > p.skv || (p.causal && k0 + BK - 1 > r0) ||
-         (p.window > 0 && k0 <= r0 + 63 - p.window);
+  const int a0 = r0 + p.q_off;
+  return k0 + BK > p.skv || (p.causal && k0 + BK - 1 > a0) ||
+         (p.window > 0 && k0 <= a0 + 63 - p.window);
 }
 
 // The kv range [lo, hi) the mask can reach from the `rows` query rows at
-// q0: causality bounds the top, the window the bottom.
+// q0 (positions from q0 + q_off): causality bounds the top, the window the
+// bottom.
 __device__ __forceinline__ void reach(const Params& p, int q0, int rows,
                                       int& lo, int& hi) {
-  hi = p.causal ? min(p.skv, q0 + rows) : p.skv;
-  lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  const int a0 = q0 + p.q_off;
+  hi = p.causal ? min(p.skv, a0 + rows) : p.skv;
+  lo = p.window > 0 ? max(0, a0 - p.window + 1) : 0;
 }
 
 // Scores of one tile in the log2 domain for this thread's values:
@@ -189,7 +194,7 @@ __device__ __forceinline__ void scale_and_mask(float (&s)[NS], const Params& p,
   for (int i = 0; i < NS; ++i) {
     float v = s[i] * scale_log2;
     if (masked) {
-      const int qp = row0 + 8 * ((i >> 1) & 1);
+      const int qp = row0 + 8 * ((i >> 1) & 1) + p.q_off;
       const int kp = col0 + 8 * (i >> 2) + (i & 1);
       const bool ok = kp < p.skv && (!p.causal || kp <= qp) &&
                       (p.window <= 0 || kp > qp - p.window);

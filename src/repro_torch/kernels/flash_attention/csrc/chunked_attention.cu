@@ -110,10 +110,11 @@ __device__ __forceinline__ float row_dot(const float (&qr)[D / TPR],
   return dot;
 }
 
-// Whether query position qp attends to key position kp.
+// Whether query row qp (at position qp + q_off) attends to key position kp.
 __device__ __forceinline__ bool visible(const Params& p, int kp, int qp) {
-  return kp < p.skv && (!p.causal || kp <= qp) &&
-         (p.window <= 0 || kp > qp - p.window);
+  const int qa = qp + p.q_off;
+  return kp < p.skv && (!p.causal || kp <= qa) &&
+         (p.window <= 0 || kp > qa - p.window);
 }
 
 // The kv range [lo, hi) the mask can reach from the q tile starting at q0:
@@ -124,9 +125,9 @@ __device__ __forceinline__ void kv_bounds(const Params& p, int q0, int& lo,
                                           int& hi) {
   constexpr int BK = simt_bk<D>();
   hi = p.skv;
-  if (p.causal) hi = min(hi, q0 + BQ);
+  if (p.causal) hi = min(hi, q0 + p.q_off + BQ);
   lo = 0;
-  if (p.window > 0) lo = max(0, q0 - p.window + 1);
+  if (p.window > 0) lo = max(0, q0 + p.q_off - p.window + 1);
   lo = (lo / BK) * BK;
 }
 
@@ -295,10 +296,10 @@ cudaError_t chunked_attention_fwd_launch(
     int batch, int sq, int skv, int hq, int hkv, int d,
     const int64_t* q_strides, const int64_t* k_strides,
     const int64_t* v_strides, const int64_t* o_strides,
-    int causal, int window, float scale, cudaStream_t stream) {
+    int causal, int window, int q_off, float scale, cudaStream_t stream) {
   const attn::Params p = attn::make_params(
       q, k, v, o, sq, skv, hq, hkv, q_strides, k_strides, v_strides,
-      o_strides, causal, window, scale);
+      o_strides, causal, window, q_off, scale);
   if (dtype == 0) return launch_typed<float>(p, batch, hq, d, stream);
   if (dtype == 1) { ATTN_DISPATCH_TC(attn::tc::chunked_fwd_tc, d, p, batch, hq, stream) }
   return cudaErrorInvalidValue;

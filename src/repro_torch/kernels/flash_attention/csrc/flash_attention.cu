@@ -76,10 +76,12 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd(const Params p) {
 
   // kv tiles the mask can reach from this q tile: causality bounds the
   // top, the window the bottom (the TPU kernel's pl.when block skip).
+  // Query row r sits at position r + q_off.
+  const int qa = qp + p.q_off;
   int hi = p.skv;
-  if (p.causal) hi = min(hi, q0 + BQ);
+  if (p.causal) hi = min(hi, q0 + p.q_off + BQ);
   int lo = 0;
-  if (p.window > 0) lo = max(0, q0 - p.window + 1);
+  if (p.window > 0) lo = max(0, q0 + p.q_off - p.window + 1);
   lo = (lo / BK) * BK;
 
   for (int k0 = lo; k0 < hi; k0 += BK) {
@@ -112,8 +114,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd(const Params p) {
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
       const int kp = k0 + j;
-      const bool ok = kp < p.skv && (!p.causal || kp <= qp) &&
-                      (p.window <= 0 || kp > qp - p.window);
+      const bool ok = kp < p.skv && (!p.causal || kp <= qa) &&
+                      (p.window <= 0 || kp > qa - p.window);
       okbits |= ok ? (1u << j) : 0u;
       s[j] = ok ? dot * p.scale : NEG;
       m_cur = fmaxf(m_cur, s[j]);
@@ -242,10 +244,10 @@ cudaError_t flash_attention_fwd_launch(
     int batch, int sq, int skv, int hq, int hkv, int d,
     const int64_t* q_strides, const int64_t* k_strides,
     const int64_t* v_strides, const int64_t* o_strides,
-    int causal, int window, float scale, cudaStream_t stream) {
+    int causal, int window, int q_off, float scale, cudaStream_t stream) {
   const attn::Params p = attn::make_params(
       q, k, v, o, sq, skv, hq, hkv, q_strides, k_strides, v_strides,
-      o_strides, causal, window, scale);
+      o_strides, causal, window, q_off, scale);
   if (dtype == 0) return launch_typed<float>(p, batch, hq, d, stream);
   if (dtype == 1) { ATTN_DISPATCH_TC(attn::tc::flash_fwd_tc, d, p, batch, hq, stream) }
   return cudaErrorInvalidValue;

@@ -29,7 +29,7 @@ MAX_GRID_YZ = 65535
 launches = 0
 
 
-def check_args(q, k, v, window):
+def check_args(q, k, v, window, q_offset=0):
     """What both attention kernels take, checked on any device: dtypes,
     shapes, head dim, grid limits, a contiguous head dim. Raises
     ``ValueError``."""
@@ -57,32 +57,40 @@ def check_args(q, k, v, window):
         raise ValueError("the head dim must be contiguous (stride 1)")
     if window < 0:
         raise ValueError(f"window {window} < 0")
+    if not 0 <= q_offset < 2 ** 31 - sq:
+        raise ValueError(f"query offset {q_offset} out of range")
 
 
-def flash_attention_cuda(q, k, v, *, causal=True, window=0):
+def flash_attention_cuda(q, k, v, *, causal=True, window=0, q_offset=0):
     """q (B, Hq, Sq, D); k/v (B, Hkv, Skv, D) -> (B, Hq, Sq, D).
 
     Any strides with the head dim contiguous: a (B, S, H, D) tensor's
     ``transpose(1, 2)`` view is read in place. On CUDA the output is
     allocated as (B, Sq, Hq, D) and returned as its transposed view, so
-    ``.transpose(1, 2)`` gives the model's layout with no copy."""
+    ``.transpose(1, 2)`` gives the model's layout with no copy.
+
+    ``q_offset``: query row r sits at position r + ``q_offset`` under the
+    causal and window masks, against keys at 0..Skv-1 (a sequence shard's
+    queries against the gathered K/V)."""
     if needs_grad(q, k, v):
         return AttentionFunction.apply(_flash_fwd, q, k, v, bool(causal),
-                                       int(window))
-    return _flash_fwd(q, k, v, causal, window)
+                                       int(window), int(q_offset))
+    return _flash_fwd(q, k, v, causal, window, q_offset)
 
 
-def _flash_fwd(q, k, v, causal, window):
+def _flash_fwd(q, k, v, causal, window, q_offset=0):
     """The forward: the plain version for CPU tensors, else the kernel."""
     if build.all_cpu(q, k, v):
-        return attention_kernel_ref(q, k, v, causal=causal, window=window)
+        return attention_kernel_ref(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset)
     build.check_cuda("flash_attention_cuda", q, k, v)
-    check_args(q, k, v, window)
+    check_args(q, k, v, window, q_offset)
     global launches
     b, hq, sq, d = q.shape
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     ot = out.transpose(1, 2)
     build.extension().flash_attention_fwd(q, k, v, ot, bool(causal),
-                                          int(window), 1.0 / math.sqrt(d))
+                                          int(window), 1.0 / math.sqrt(d),
+                                          int(q_offset))
     launches += 1
     return ot

@@ -9,17 +9,19 @@ from repro_torch.kernels.flash_attention.chunked import chunked_attention_cuda
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 
 
-def flash_attention(q, k, v, *, causal=True, window=0):
-    """q (B, Sq, Hq, D); k/v (B, Skv, Hkv, D) -> (B, Sq, Hq, D)."""
+def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
+    """q (B, Sq, Hq, D); k/v (B, Skv, Hkv, D) -> (B, Sq, Hq, D), query row
+    r at position r + ``q_offset``."""
     o = flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), causal=causal, window=window)
+                             v.transpose(1, 2), causal=causal, window=window,
+                             q_offset=q_offset)
     return o.transpose(1, 2)
 
 
-def chunked_attention(q, k, v, *, causal=True, window=0):
+def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     """The two-pass kernel, same layout and function as
     :func:`flash_attention`."""
     o = chunked_attention_cuda(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), causal=causal,
-                               window=window)
+                               window=window, q_offset=q_offset)
     return o.transpose(1, 2)

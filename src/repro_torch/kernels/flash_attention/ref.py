@@ -6,9 +6,12 @@ import math
 import torch
 
 
-def _visible(sq, skv, causal, window, device):
-    """(Sq, Skv) bool: which keys each query sees under the mask."""
+def _visible(sq, skv, causal, window, device, q_offset=0):
+    """(Sq, Skv) bool: which keys each query sees under the mask, query
+    row r at position r + ``q_offset``."""
     q_pos = torch.arange(sq, device=device)[:, None]
+    if q_offset:
+        q_pos = q_pos + q_offset
     kv_pos = torch.arange(skv, device=device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
     if causal:
@@ -18,8 +21,9 @@ def _visible(sq, skv, causal, window, device):
     return mask
 
 
-def attention_ref(q, k, v, *, causal=True, window=0):
-    """q (B, Hq, Sq, D); k/v (B, Hkv, Skv, D) -> (B, Hq, Sq, D). A row that
+def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
+    """q (B, Hq, Sq, D); k/v (B, Hkv, Skv, D) -> (B, Hq, Sq, D), query row
+    r at position r + ``q_offset`` (a sequence shard's start). A row that
     sees no key gets the mean of V, as the reference's ``attention_ref``."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -27,20 +31,22 @@ def attention_ref(q, k, v, *, causal=True, window=0):
     k = k.repeat_interleave(group, dim=1)
     v = v.repeat_interleave(group, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
-    mask = _visible(sq, skv, causal, window, q.device)
+    mask = _visible(sq, skv, causal, window, q.device, q_offset)
     s = s.masked_fill(~mask, -1e30)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     return o.to(q.dtype)
 
 
-def attention_kernel_ref(q, k, v, *, causal=True, window=0):
+def attention_kernel_ref(q, k, v, *, causal=True, window=0, q_offset=0):
     """The kernels' function: ``attention_ref`` with every row that sees no
     key under ``causal`` and ``window`` set to 0, as the Pallas kernels
     (``flash_attention_tpu``, ``chunked_attention_tpu``) and the CUDA
     bodies give it."""
-    out = attention_ref(q, k, v, causal=causal, window=window)
-    empty = ~_visible(q.shape[2], k.shape[2], causal, window, q.device).any(-1)
+    out = attention_ref(q, k, v, causal=causal, window=window,
+                        q_offset=q_offset)
+    empty = ~_visible(q.shape[2], k.shape[2], causal, window, q.device,
+                      q_offset).any(-1)
     return out.masked_fill(empty[:, None], 0)
 
 
@@ -55,12 +61,13 @@ def _bmm_f32(a, b):
 
 
 def attention_kernel_bwd_ref(q, k, v, o, do, *, causal=True, window=0,
-                             q_tile=512):
+                             q_offset=0, q_tile=512):
     """The gradient of :func:`attention_kernel_ref` with respect to q, k
     and v: (dq, dk, dv) in the inputs' dtypes, computed from the saved q,
     k, v, the forward's output ``o`` and the output's gradient ``do``, all
     in the kernels' (B, H, S, D) layout, any strides.
 
+    Query row r sits at position r + ``q_offset``, as in the forward.
     Blocked over tiles of ``q_tile`` queries, so that no (Sq x Skv) matrix
     is ever whole: each tile reads only the keys its rows can reach (the
     causal top, the window's bottom), recomputes its scores and softmax in
@@ -85,14 +92,14 @@ def attention_kernel_bwd_ref(q, k, v, o, do, *, causal=True, window=0,
     for a0 in range(0, sq, q_tile):
         a1 = min(a0 + q_tile, sq)
         t = a1 - a0
-        hi = min(skv, a1) if causal else skv
-        lo = max(0, a0 - window + 1) if window > 0 else 0
+        hi = min(skv, q_offset + a1) if causal else skv
+        lo = max(0, q_offset + a0 - window + 1) if window > 0 else 0
         if hi <= lo:
             continue
         qt = qg[:, :, :, a0:a1].reshape(b * hkv, g * t, d)
         dot = dog[:, :, :, a0:a1].reshape(b * hkv, g * t, d)
         kt, vt = kb[:, lo:hi], vb[:, lo:hi]
-        mask = _visible(a1, hi, causal, window, dev)[a0:, lo:]
+        mask = _visible(a1, hi, causal, window, dev, q_offset)[a0:, lo:]
         s = _bmm_f32(qt, kt.transpose(1, 2)).view(b * hkv, g, t, hi - lo)
         s = s.mul_(scale).masked_fill_(~mask, -torch.inf)
         m = s.amax(-1, keepdim=True).nan_to_num_(neginf=0.0)

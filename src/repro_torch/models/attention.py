@@ -17,6 +17,18 @@ Prefill paths, chosen by ``ModelConfig.attn_impl``:
   - ``naive``     : O(S^2) oracle (tests, tiny shapes).
 Decode attends one token per lane over the cache
 (``decode_attention_local``).
+
+Under a mesh (``repro_torch.sharding``), the reference's two
+``shard_map`` branches:
+  - ``context_attention``: all-gather-KV context parallelism. Queries
+    stay sequence-sharded over the 'seq' axis; each shard gathers the
+    layer's K/V and attends with its queries at their absolute positions
+    (``q_offset`` = the shard's start), through the kernel that ``impl``
+    names (the reference runs ``flash_attention_xla`` there);
+  - ``decode_attention``: flash-decoding. The cache is sharded along its
+    sequence over the 'kv_seq' axes; each shard attends over its slice
+    and the partial softmaxes merge by the log-sum-exp trick (``pmax`` /
+    ``psum``).
 """
 from __future__ import annotations
 
@@ -26,6 +38,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import fused_f32, matmul_f32
+from repro_torch.sharding import rules
 
 _NEG = -1e30
 IMPLS = ("kernel", "chunked", "xla_flash", "naive")
@@ -125,36 +138,76 @@ def window_attention_xla(q, k, v, *, window, q_offset=0, q_chunk=0):
     return torch.cat(outs, dim=1)
 
 
-def context_attention(q, k, v, *, causal=True, window=0, impl="kernel"):
-    """Prefill attention on one device (the reference's no-mesh branch),
-    dispatched on ``impl`` (``ModelConfig.attn_impl``). The CUDA kernels
-    take the window as a mask; the plain path slices the keys as the
-    reference's ``local`` does."""
+def _local_attention(q, k, v, causal, window, impl, q_offset):
+    """Prefill attention on local tensors, dispatched on ``impl``
+    (``ModelConfig.attn_impl``), the queries at ``q_offset`` onwards. The
+    CUDA kernels take the window as a mask; the plain path slices the
+    keys as the reference's ``local`` does."""
     if impl == "kernel":
-        return fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+        return fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset)
     if impl == "chunked":
-        return fa_ops.chunked_attention(q, k, v, causal=causal, window=window)
+        return fa_ops.chunked_attention(q, k, v, causal=causal,
+                                        window=window, q_offset=q_offset)
     if impl == "xla_flash":
         if window > 0 and causal:
-            return window_attention_xla(q, k, v, window=window)
-        return flash_attention_xla(q, k, v, causal=causal, window=window)
+            return window_attention_xla(q, k, v, window=window,
+                                        q_offset=q_offset)
+        return flash_attention_xla(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
     if impl == "naive":
-        return naive_attention(q, k, v, causal=causal, window=window)
+        return naive_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
     raise ValueError(f"unknown attn_impl {impl!r}; expected one of {IMPLS}")
+
+
+def context_attention(q, k, v, *, causal=True, window=0, impl="kernel"):
+    """Prefill attention. Without a mesh, one local call. Under a mesh:
+    all-gather-KV context parallelism, each sequence shard at its absolute
+    offset; or, when the query sequence does not divide the 'seq' axes,
+    the local call on each rank's batch shard, the sequences whole (the
+    kernels take no DTensor)."""
+    ctx = rules.current_ctx()
+    mesh = ctx.mesh
+    sq = q.shape[1]
+    axes = ctx.mesh_axes("seq")
+    if not rules.is_device_mesh(mesh):
+        return _local_attention(q, k, v, causal, window, impl, 0)
+    bspec = ctx.spec(("batch",), (q.shape[0],))[0]
+    if not axes or sq % ctx.axes_size("seq") != 0:
+        spec = (bspec, None, None, None)
+        return rules.shard_map(
+            lambda qq, kk, vv: _local_attention(qq, kk, vv, causal, window,
+                                                impl, 0),
+            mesh=mesh, in_specs=(spec,) * 3, out_specs=spec)(q, k, v)
+    axis = axes[0]
+    kv_sharded = k.shape[1] % rules.mesh_shape(mesh)[axis] == 0
+    qspec = (bspec, axis, None, None)
+    kvspec = (bspec, axis if kv_sharded else None, None, None)
+
+    def f(qq, kk, vv):
+        if kv_sharded:
+            kk = rules.all_gather(kk, mesh, axis, 1)
+            vv = rules.all_gather(vv, mesh, axis, 1)
+        q_off = rules.axis_index(mesh, axis) * qq.shape[1]
+        return _local_attention(qq, kk, vv, causal, window, impl, q_off)
+
+    return rules.shard_map(f, mesh=mesh, in_specs=(qspec, kvspec, kvspec),
+                           out_specs=qspec)(q, k, v)
 
 
 def attend(q, k, v, *, causal=True, window=0, impl="xla_flash",
            q_offset=0):
     """The reference's ``attend``: ``naive`` the oracle, ``kernel`` the
-    CUDA flash kernel (the reference's ``pallas``; it takes no query
-    offset), any other ``impl`` the plain path, windowed when causal."""
+    CUDA flash kernel (the reference's ``pallas``, which takes no query
+    offset; this one does), any other ``impl`` the plain path, windowed
+    when causal."""
     if impl == "naive":
         return naive_attention(q, k, v, causal=causal, window=window,
                                q_offset=q_offset)
     if impl == "kernel":
-        if q_offset:
-            raise ValueError("the flash kernel takes no query offset")
-        return fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+        return fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset)
     if window > 0 and causal:
         return window_attention_xla(q, k, v, window=window,
                                     q_offset=q_offset)
@@ -254,8 +307,39 @@ def decode_attention_local(q, k_cache, v_cache, *, pos, window=0,
 
 
 def decode_attention(q, k_cache, v_cache, *, pos, window=0):
-    """Decode attention on one device (the reference's no-mesh branch).
-    q: (B, Hq, D) -> (B, Hq, D)."""
-    o, _, _ = decode_attention_local(q, k_cache, v_cache, pos=pos,
-                                     window=window)
+    """Decode attention, q: (B, Hq, D) -> (B, Hq, D). Without a mesh, or
+    when the cache's length does not divide the 'kv_seq' axes, one local
+    call. Under a mesh, flash-decoding: the cache sequence-sharded over
+    every 'kv_seq' axis the batch does not use, each shard's normalised
+    partial output re-weighted by exp(m - max m)·l and the shards summed
+    (``psum``), then divided by the summed weights."""
+    ctx = rules.current_ctx()
+    mesh = ctx.mesh
+    b, hq, d = q.shape
+    skv = k_cache.shape[1]
+    axes = ctx.mesh_axes("kv_seq")
+    if mesh is None or not axes or skv % ctx.axes_size("kv_seq") != 0:
+        o, _, _ = decode_attention_local(q, k_cache, v_cache, pos=pos,
+                                         window=window)
+        return o.reshape(q.shape).to(q.dtype)
+    bspec = ctx.spec(("batch",), (b,))[0]
+    used = set(rules.spec_axes(bspec))
+    axes = tuple(a for a in axes if a not in used) or axes
+    qspec = (bspec, None, None)
+    cspec = (bspec, axes if len(axes) > 1 else axes[0], None, None)
+    # per-slot positions shard with the batch; an int passes as it is
+    specs = (qspec, cspec, cspec, (bspec,))
+
+    def f(qq, kk, vv, pp):
+        base = rules.axis_index(mesh, axes) * kk.shape[1]
+        o, m, l = decode_attention_local(qq, kk, vv, pos=pp, window=window,
+                                         kv_offset=base)
+        gm = rules.pmax(m, mesh, axes)
+        wl = torch.exp(m - gm) * l
+        num = rules.psum(o * wl[..., None], mesh, axes)
+        den = rules.psum(wl, mesh, axes)
+        return num / torch.clamp(den, min=1e-30)[..., None]
+
+    o = rules.shard_map(f, mesh=mesh, in_specs=specs, out_specs=qspec)(
+        q, k_cache, v_cache, pos)
     return o.reshape(q.shape).to(q.dtype)

@@ -170,6 +170,36 @@ class ModelConfig:
         return total, active
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One input shape of the dry-run's cells: a step of ``mode`` over
+    ``global_batch`` sequences of ``seq_len`` tokens."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: Literal["train", "prefill", "decode"]
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+# Archs that also get the long_500k cell (the others are pure
+# full-attention, which the cell skips).
+LONG_CONTEXT_ARCHS = {"mamba2-1.3b", "zamba2-7b", "gemma3-1b", "gemma3-12b"}
+
+
+def shape_cells(arch: str) -> list[str]:
+    """The dry-run cells defined for an architecture."""
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch in LONG_CONTEXT_ARCHS:
+        cells.append("long_500k")
+    return cells
+
+
 _REGISTRY: dict[str, ModelConfig] = {}
 _SMOKE: dict[str, ModelConfig] = {}
 
@@ -200,3 +230,12 @@ def _ensure_loaded() -> None:
         return
     # Importing repro_torch.configs registers every ported architecture.
     import repro_torch.configs  # noqa: F401
+
+
+def human(n: float) -> str:
+    """``n`` with a K/M/B/T/P suffix and one decimal."""
+    for unit in ("", "K", "M", "B", "T"):
+        if abs(n) < 1000:
+            return f"{n:.1f}{unit}"
+        n /= 1000
+    return f"{n:.1f}P"

@@ -7,6 +7,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.rules import matmul, shard
+
 
 def fused_f32(*ts: torch.Tensor) -> bool:
     """Whether products of these operands take :func:`matmul_f32`'s fused
@@ -62,13 +64,15 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP."""
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    """SwiGLU MLP, its hidden dim sharded over 'ff' under a mesh."""
+    h = shard(F.silu(matmul(x, w_gate)) * matmul(x, w_up), "batch", None,
+              "ff")
+    return matmul(h, w_down)
 
 
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
                  compute_dtype: torch.dtype) -> torch.Tensor:
-    return table[tokens].to(compute_dtype)
+    return shard(table[tokens].to(compute_dtype), "batch", None, None)
 
 
 def lm_logits(x: torch.Tensor, table_or_head: torch.Tensor, tied: bool
@@ -76,7 +80,7 @@ def lm_logits(x: torch.Tensor, table_or_head: torch.Tensor, tied: bool
     """Final projection to the vocab, fp32 logits for loss stability: x
     (..., D) against a tied table (V, D) or a head (D, V)."""
     w = table_or_head.float()
-    return x.float() @ (w.T if tied else w)
+    return shard(x.float() @ (w.T if tied else w), "batch", None, "vocab")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

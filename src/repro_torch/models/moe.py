@@ -15,8 +15,18 @@ Python int of the token count, and there is no ``.item()``, no
 ``nonzero`` and no branch on a device value, so a decode step through this
 layer can be captured as a CUDA graph.
 
-The reference's expert-parallel branches of ``moe_apply`` (``a2a``,
-``psum``, 2-D) need a mesh; they are ROADMAP Queue A item 12.
+Under a mesh, ``moe_apply`` takes the reference's expert-parallel
+branches, each a ``shard_map`` whose routing and dispatch run on local
+tensors through the pieces above:
+  - ``a2a`` (train / prefill): tokens sequence-sharded over the experts'
+    axis; dispatch buffers move to their experts' ranks by all-to-all, the
+    local experts run, and the results come back the same way;
+  - ``psum`` (decode, or a sequence that does not divide the axis): every
+    rank routes the same tokens, runs only its own experts, and one psum
+    combines the partial outputs; ``_moe_psum_multi`` when the experts
+    span several mesh axes;
+  - ``_moe_decode_2d``: experts over 'experts', their FF dim over
+    'expert_ff' (the decode rules of the MoE giants), one psum over all.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from repro_torch.models.config import MoEConfig
+from repro_torch.sharding import rules
 
 
 def route(x2d: torch.Tensor, w_router: torch.Tensor, top_k: int):
@@ -133,7 +144,135 @@ def moe_dense_oracle(x2d: torch.Tensor, params: dict, cfg: MoEConfig
 
 
 def moe_apply(x: torch.Tensor, params: dict, cfg: MoEConfig) -> torch.Tensor:
-    """x (B, S, D): the reference's ``moe_apply`` without a mesh, which
-    runs :func:`moe_local` over the B·S tokens."""
+    """x (B, S, D) -> (B, S, D), the variant chosen from the sharding
+    context: without a mesh (or with experts that do not divide their
+    axes) :func:`moe_local` over the B·S tokens."""
+    ctx = rules.current_ctx()
+    mesh = ctx.mesh
     b, s, d = x.shape
-    return moe_local(x.reshape(-1, d), params, cfg).reshape(b, s, d)
+    axes = ctx.mesh_axes("experts")
+    if mesh is None or not axes or cfg.n_experts % ctx.axes_size("experts"):
+        return moe_local(x.reshape(-1, d), params, cfg).reshape(b, s, d)
+    bspec = ctx.spec(("batch",), (b,))[0]
+    f_axes = tuple(a for a in ctx.mesh_axes("expert_ff")
+                   if cfg.d_ff_expert % ctx.axes_size("expert_ff") == 0)
+    if f_axes:
+        return _moe_decode_2d(x, params, cfg, axes, f_axes)
+    if len(axes) > 1:
+        return _moe_psum_multi(x, params, cfg, axes, bspec)
+    axis = axes[0]
+    tp = rules.mesh_shape(mesh)[axis]
+    e = cfg.n_experts
+    wspec = ((None,), (axis, None, None), (axis, None, None),
+             (axis, None, None))
+    args = (x, params["router"], params["w_gate"], params["w_up"],
+            params["w_down"])
+    if s % tp:
+        # psum variant (decode: S == 1, or a sequence that does not divide)
+        xspec = (bspec, None, None)
+
+        def f_psum(xx, router, w_gate, w_up, w_down):
+            lo = rules.axis_index(mesh, axis) * (e // tp)
+            y = _local_experts(xx, router, w_gate, w_up, w_down, cfg, lo,
+                               e // tp)
+            return rules.psum(y, mesh, axis).to(xx.dtype)
+
+        return rules.shard_map(f_psum, mesh=mesh, in_specs=(xspec, *wspec),
+                               out_specs=xspec)(*args)
+    xspec = (bspec, axis, None)
+
+    def f_a2a(xx, router, w_gate, w_up, w_down):
+        bl, sl, _ = xx.shape
+        x2d = xx.reshape(-1, d)
+        t = x2d.shape[0]
+        weights, experts = route(x2d, router, cfg.top_k)
+        cap = _capacity(t, cfg)
+        slot = _dispatch_indices(experts, e, cap)
+        buf = _dispatch(x2d, slot, e, cap)
+        # (E, C, D) -> (tp, E/tp, C, D) -> a2a -> (E/tp, tp*C, D)
+        buf = rules.all_to_all(buf.reshape(tp, e // tp, cap, d), mesh, axis)
+        buf = buf.transpose(0, 1).reshape(e // tp, tp * cap, d)
+        out = _expert_ffn(buf, w_gate, w_up, w_down)
+        out = out.reshape(e // tp, tp, cap, d).transpose(0, 1)
+        out = rules.all_to_all(out, mesh, axis).reshape(e * cap, d)
+        y = _combine(out, slot, weights, t, d)
+        return y.reshape(bl, sl, d).to(xx.dtype)
+
+    return rules.shard_map(f_a2a, mesh=mesh, in_specs=(xspec, *wspec),
+                           out_specs=xspec)(*args)
+
+
+def _local_experts(xx, router, w_gate, w_up, w_down, cfg: MoEConfig,
+                   lo, e_local: int) -> torch.Tensor:
+    """One rank's share of a psum MoE: every token routed over all
+    experts, only the choices of experts lo .. lo + e_local - 1 (this
+    rank's) dispatched to its local weights, the others weighted 0. Returns
+    the fp32 partial output (B, S, D) for the psum."""
+    bl, sl, d = xx.shape
+    x2d = xx.reshape(-1, d)
+    t = x2d.shape[0]
+    weights, experts = route(x2d, router, cfg.top_k)
+    local = (experts >= lo) & (experts < lo + e_local)
+    weights = torch.where(local, weights, 0.0)
+    cap = max(_capacity(t, cfg), 1)
+    # the other ranks' choices rank in an extra bucket e_local, then drop
+    slot = _dispatch_indices(torch.where(local, experts - lo, e_local),
+                             e_local + 1, cap)
+    slot = torch.where(slot < e_local * cap, slot, e_local * cap)
+    buf = _dispatch(x2d, slot, e_local, cap)
+    out = _expert_ffn(buf.reshape(e_local, cap, d), w_gate, w_up, w_down)
+    y = _combine(out.reshape(-1, d), slot, weights, t, d)
+    return y.float().reshape(bl, sl, d)
+
+
+def _moe_decode_2d(x, params, cfg: MoEConfig, e_axes, f_axes):
+    """2-D expert-sharded psum MoE: experts over ``e_axes``, the expert FF
+    dim over ``f_axes``. Column-parallel through the SwiGLU nonlinearity
+    (elementwise in F), row-parallel down-projection; one psum over all
+    expert axes combines both shardings. Tokens replicated inside."""
+    mesh = rules.current_ctx().mesh
+    e_local = cfg.n_experts // rules.axis_count(mesh, e_axes)
+    e_spec = e_axes if len(e_axes) > 1 else e_axes[0]
+    f_spec = f_axes if len(f_axes) > 1 else f_axes[0]
+    all_axes = tuple(e_axes) + tuple(f_axes)
+    xspec = (None, None, None)
+    wspec = ((None, None), (e_spec, None, f_spec), (e_spec, None, f_spec),
+             (e_spec, f_spec, None))
+
+    def f(xx, router, w_gate, w_up, w_down):
+        lo = rules.axis_index(mesh, e_axes) * e_local
+        y = _local_experts(xx, router, w_gate, w_up, w_down, cfg, lo,
+                           e_local)
+        return rules.psum(y, mesh, _mesh_ordered(mesh, all_axes)).to(
+            xx.dtype)
+
+    return rules.shard_map(f, mesh=mesh, in_specs=(xspec, *wspec),
+                           out_specs=xspec)(
+        x, params["router"], params["w_gate"], params["w_up"],
+        params["w_down"])
+
+
+def _moe_psum_multi(x, params, cfg: MoEConfig, axes, bspec):
+    """psum MoE variant with experts sharded over several mesh axes."""
+    mesh = rules.current_ctx().mesh
+    e_local = cfg.n_experts // rules.axis_count(mesh, axes)
+    xspec = (bspec, None, None)
+    wspec = ((None,), (axes, None, None), (axes, None, None),
+             (axes, None, None))
+
+    def f(xx, router, w_gate, w_up, w_down):
+        lo = rules.axis_index(mesh, axes) * e_local
+        y = _local_experts(xx, router, w_gate, w_up, w_down, cfg, lo,
+                           e_local)
+        return rules.psum(y, mesh, tuple(axes)).to(xx.dtype)
+
+    return rules.shard_map(f, mesh=mesh, in_specs=(xspec, *wspec),
+                           out_specs=xspec)(
+        x, params["router"], params["w_gate"], params["w_up"],
+        params["w_down"])
+
+
+def _mesh_ordered(mesh, axes) -> tuple:
+    """``axes`` in the mesh's order (a psum over them is the same sum)."""
+    names = list(rules.mesh_shape(mesh))
+    return tuple(sorted(axes, key=names.index))

@@ -13,6 +13,11 @@ One deliberate difference from the reference: its kernel path silently
 drops a given ``ssd_state`` for L > 1 (``repro/models/ssm.py:126-129``),
 while the port's kernel continues the scan from it, as the reference's
 plain path does.
+
+Under a device mesh the block's heads follow the 'q_heads' axis (the
+reference's ``shard`` of ``xh``), and the scan, kernel or plain, runs on
+each rank's heads inside ``shard_map`` (``_scan_heads``): a CUDA
+extension cannot take a DTensor.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd_scan.kernel import ssd_cuda
 from repro_torch.models.config import SSMConfig
 from repro_torch.models.layers import rms_norm
+from repro_torch.sharding import rules
 
 
 def ssd_ref(x, dt, A, B, C, chunk: int = 128, init_state=None):
@@ -103,6 +109,40 @@ def causal_conv(x, w, cache=None):
     return y.to(x.dtype), new_cache
 
 
+def _conv(x, w, cache):
+    """:func:`causal_conv`; under a device mesh on each rank's batch shard
+    with the sequence and channels whole (DTensor has no rule for the
+    conv's padding and shifted slices)."""
+    ctx = rules.current_ctx()
+    if not rules.is_device_mesh(ctx.mesh) or w.shape[0] == 1:
+        return causal_conv(x, w, cache)
+    bs = ctx.spec(("batch",), (x.shape[0],))[0]
+    spec = (bs, None, None)
+    return rules.shard_map(causal_conv, mesh=ctx.mesh,
+                           in_specs=(spec, (None, None), spec),
+                           out_specs=[spec, spec])(x, w, cache)
+
+
+def _scan_heads(scan, xh, dt, A, Bv, Cv, chunk: int, init_state):
+    """``scan(xh, dt, A, Bv, Cv, chunk=, init_state=)``; under a device
+    mesh on each rank's local shards: x, dt, A and the states split over
+    the heads as ``xh``'s spec says (and the batch over its axes), B and C
+    whole over the heads."""
+    ctx = rules.current_ctx()
+    if not rules.is_device_mesh(ctx.mesh):
+        return scan(xh, dt, A, Bv, Cv, chunk=chunk, init_state=init_state)
+    bs, _, hs, _ = ctx.spec(("batch", None, "q_heads", None), xh.shape)
+    state = (bs, hs, None, None)
+    specs = ((bs, None, hs, None), (bs, None, hs), (hs,), (bs, None, None),
+             (bs, None, None), state)
+    return rules.shard_map(
+        lambda x, d, a, bm, cm, s0: scan(x, d, a, bm, cm, chunk=chunk,
+                                         init_state=s0),
+        mesh=ctx.mesh, in_specs=specs,
+        out_specs=[(bs, None, hs, None), state])(xh, dt, A, Bv, Cv,
+                                                 init_state)
+
+
 def mamba_block(params, x, cfg: SSMConfig, *, conv_cache=None,
                 ssd_state=None, chunk=None, use_kernel=False):
     """Full Mamba2 block. x (B, L, D). Returns (out, (conv_cache,
@@ -111,28 +151,27 @@ def mamba_block(params, x, cfg: SSMConfig, *, conv_cache=None,
     di = cfg.d_inner(d)
     n = cfg.d_state
     h = cfg.n_heads(d)
-    proj = x @ params["in_proj"]                  # (B, L, 2*di + 2n + h)
+    proj = rules.matmul(x, params["in_proj"])     # (B, L, 2*di + 2n + h)
     z, xbc, dt = torch.split(proj, [di, di + 2 * n, h], dim=-1)
-    xbc, new_conv = causal_conv(xbc, params["conv_w"], conv_cache)
+    xbc, new_conv = _conv(xbc, params["conv_w"], conv_cache)
     xbc = F.silu(xbc)
     # column views of one (B, L, di + 2n) tensor: the kernel reads them
     # through their strides
     xs, Bv, Cv = torch.split(xbc, [di, n, n], dim=-1)
     dt = F.softplus(dt.float() + params["dt_bias"].float())
     A = -torch.exp(params["A_log"].float())
-    xh = xs.reshape(b, l, h, cfg.head_dim)
+    xh = rules.shard(xs.reshape(b, l, h, cfg.head_dim), "batch", None,
+                     "q_heads", None)
     if l == 1 and ssd_state is not None:
         y, new_state = ssd_decode_step(ssd_state, xh[:, 0], dt[:, 0], A,
                                        Bv[:, 0], Cv[:, 0])
         y = y[:, None]
-    elif use_kernel:
-        y, new_state = ssd_cuda(xh, dt, A, Bv, Cv, chunk=chunk or cfg.chunk,
-                                init_state=ssd_state)
     else:
-        y, new_state = ssd_ref(xh, dt, A, Bv, Cv, chunk=chunk or cfg.chunk,
-                               init_state=ssd_state)
+        y, new_state = _scan_heads(ssd_cuda if use_kernel else ssd_ref, xh,
+                                   dt, A, Bv, Cv, chunk or cfg.chunk,
+                                   ssd_state)
     y = y + params["D"].float()[None, None, :, None] * xh.float()
     y = y.reshape(b, l, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), params["ssm_norm"])
-    out = y @ params["out_proj"]
+    out = rules.matmul(y, params["out_proj"])
     return out, (new_conv, new_state.float())

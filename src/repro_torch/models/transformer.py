@@ -54,6 +54,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -61,9 +62,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models import embedloss
 from repro_torch.models.attention import context_attention, decode_attention
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, rms_norm, rope_table, swiglu
+from repro_torch.models.layers import apply_rope, rms_norm, rope_table
 from repro_torch.models.moe import moe_apply
 from repro_torch.models.ssm import mamba_block
+from repro_torch.sharding import rules, shard
 
 Params = dict[str, Any]
 
@@ -84,6 +86,24 @@ STACK_DIMS = {"layers": 1, "local": 2, "global": 1, "mamba": 2, "tail": 1,
               "shared_attn": 0, "enc": 1, "dec": 1}
 # the prefix of a decoder layer's cross-attention leaves (``cwq``, ...)
 CROSS = "c"
+# logical axes of each leaf without its stack dims (the reference's
+# ``_Maker`` declarations); a cross-attention leaf takes its name's
+LEAF_AXES = {
+    "embed": ("vocab", "embed"), "ln_final": ("embed",),
+    "ln_enc_final": ("embed",),
+    "ln_attn": ("embed",), "wq": ("embed", "q_heads"),
+    "wk": ("embed", "kv_heads"), "wv": ("embed", "kv_heads"),
+    "wo": ("q_heads", "embed"),
+    "ln_mlp": ("embed",), "w_gate": ("embed", "ff"), "w_up": ("embed", "ff"),
+    "w_down": ("ff", "embed"),
+    "router": ("embed", None),
+    "moe_gate": ("experts", "embed", "expert_ff"),
+    "moe_up": ("experts", "embed", "expert_ff"),
+    "moe_down": ("experts", "expert_ff", "embed"),
+    "ln_ssm": ("embed",), "in_proj": ("embed", "ff"), "conv_w": (None, None),
+    "dt_bias": (None,), "A_log": (None,), "D": (None,), "ssm_norm": ("ff",),
+    "out_proj": ("ff", "embed"),
+}
 
 
 def _dt(name: str) -> torch.dtype:
@@ -215,6 +235,35 @@ class Model(nn.Module):
             out["shared_attn"] = self._attn_mlp_shapes(())
         return out
 
+    def param_axes(self) -> dict[str, Any]:
+        """Logical-axis names mirroring the parameter dict (no
+        allocation): a stacked leaf's stack dims are None."""
+        def axes(name, shape, n_stack):
+            base = LEAF_AXES[name[len(CROSS):] if name.startswith(
+                CROSS + "w") or name == CROSS + "ln_attn" else name]
+            return (None,) * n_stack + base
+
+        out: dict[str, Any] = {}
+        for group, shapes in self.param_shapes().items():
+            if isinstance(shapes, dict):
+                out[group] = {name: axes(name, shape, STACK_DIMS[group])
+                              for name, shape in shapes.items()}
+            else:
+                out[group] = axes(group, shapes, 0)
+        return out
+
+    def abstract_params(self) -> dict[str, Any]:
+        """The parameter dict as meta tensors (shapes and dtypes, no
+        storage): the reference's ``eval_shape`` of ``init``."""
+        dtype = _dt(self.cfg.param_dtype)
+
+        def leaf(shape):
+            if isinstance(shape, dict):
+                return {k: leaf(v) for k, v in shape.items()}
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        return leaf(self.param_shapes())
+
     def init(self, seed: int = 0, device=None) -> Params:
         """Random parameters from a seeded ``torch.Generator`` on ``device``
         (default ``cuda``): dense leaves ~ N(0, 1/fan_in), norm scales 0
@@ -270,14 +319,16 @@ class Model(nn.Module):
         c = self.cfg
         b, s, _ = x.shape
         h = rms_norm(x, p["ln_attn"], c.norm_eps)
-        q = (h @ p["wq"]).reshape(b, s, c.n_heads, c.hd)
-        k = (h @ p["wk"]).reshape(b, s, c.n_kv_heads, c.hd)
-        v = (h @ p["wv"]).reshape(b, s, c.n_kv_heads, c.hd)
+        q = _heads(rules.matmul(h, p["wq"]), s, c.n_heads)
+        k = _heads(rules.matmul(h, p["wk"]), s, c.n_kv_heads)
+        v = _heads(rules.matmul(h, p["wv"]), s, c.n_kv_heads)
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
         o = context_attention(q, k, v, causal=True, window=window,
                               impl=c.attn_impl)
-        return x + o.reshape(b, s, -1) @ p["wo"], (k, v)
+        o = rules.pin(o.reshape(b, s, -1))
+        return x + shard(rules.matmul(o, p["wo"]), "batch", "seq",
+                         None), (k, v)
 
     def _attn_nocausal(self, p, x, kv_from=None):
         """Encoder self-attention, or with ``kv_from`` (the encoder's
@@ -289,12 +340,14 @@ class Model(nn.Module):
         h = rms_norm(x, p[prefix + "ln_attn"], c.norm_eps)
         src = h if kv_from is None else kv_from
         t = src.shape[1]
-        q = (h @ p[prefix + "wq"]).reshape(b, s, c.n_heads, c.hd)
-        k = (src @ p[prefix + "wk"]).reshape(b, t, c.n_kv_heads, c.hd)
-        v = (src @ p[prefix + "wv"]).reshape(b, t, c.n_kv_heads, c.hd)
+        q = _heads(rules.matmul(h, p[prefix + "wq"]), s, c.n_heads)
+        k = _heads(rules.matmul(src, p[prefix + "wk"]), t, c.n_kv_heads)
+        v = _heads(rules.matmul(src, p[prefix + "wv"]), t, c.n_kv_heads)
         o = context_attention(q, k, v, causal=False, window=0,
                               impl=c.attn_impl)
-        return x + o.reshape(b, s, -1) @ p[prefix + "wo"], (k, v)
+        o = rules.pin(o.reshape(b, s, -1))
+        return x + shard(rules.matmul(o, p[prefix + "wo"]), "batch",
+                         "seq", None), (k, v)
 
     def _ffn(self, p, x):
         """The FFN block: SwiGLU, or in a MoE layer the experts (plus the
@@ -302,18 +355,27 @@ class Model(nn.Module):
         c = self.cfg
         h = rms_norm(x, p["ln_mlp"], c.norm_eps)
         if "router" not in p:
-            return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
-        y = moe_apply(h, {"router": p["router"], "w_gate": p["moe_gate"],
-                          "w_up": p["moe_up"], "w_down": p["moe_down"]},
-                      c.moe)
-        if c.moe.dense_residual:
-            y = y + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
-        return x + y
+            y = self._dense_mlp(p, h)
+        else:
+            y = moe_apply(h, {"router": p["router"],
+                              "w_gate": p["moe_gate"], "w_up": p["moe_up"],
+                              "w_down": p["moe_down"]}, c.moe)
+            if c.moe.dense_residual:
+                y = y + self._dense_mlp(p, h)
+        return x + shard(y, "batch", "seq", None)
+
+    @staticmethod
+    def _dense_mlp(p, h):
+        """SwiGLU, its hidden dim sharded over 'ff' under a mesh."""
+        hh = shard(F.silu(rules.matmul(h, p["w_gate"]))
+                   * rules.matmul(h, p["w_up"]), "batch", "seq", "ff")
+        return rules.matmul(hh, p["w_down"])
 
     @staticmethod
     def _index(tree: Params, *idx) -> dict[str, torch.Tensor]:
         """One layer's leaves of a stacked group."""
-        return {name: leaf[idx] for name, leaf in tree.items()}
+        return {name: rules.gather_dims(leaf, range(len(idx)))[idx]
+                for name, leaf in tree.items()}
 
     def _picker(self, params: Params, train: bool):
         """``pick(group, *idx)``: one layer's leaves of a stacked group. On
@@ -327,8 +389,10 @@ class Model(nn.Module):
         def pick(group, *idx):
             n = STACK_DIMS[group]
             if group not in unbound:
-                unbound[group] = {name: leaf.flatten(0, n - 1).unbind(0)
-                                  for name, leaf in params[group].items()}
+                unbound[group] = {
+                    name: rules.gather_dims(leaf, range(n)).flatten(
+                        0, n - 1).unbind(0)
+                    for name, leaf in params[group].items()}
             first = next(iter(params[group].values()))
             flat = int(np.ravel_multi_index(idx, first.shape[:n]))
             return {name: rows[flat] for name, rows in unbound[group].items()}
@@ -427,6 +491,7 @@ class Model(nn.Module):
         if c.kind == "vlm" and "patches" in batch:
             patches = batch["patches"].to(x.dtype)
             x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
+        x = shard(x, "batch", "seq", None)
         s = x.shape[1]
         sin, cos = rope_table(torch.arange(s, device=x.device), c.hd,
                               c.rope_theta)
@@ -435,8 +500,9 @@ class Model(nn.Module):
         for kind, p, views, window, rolling in self._layers(params, cache,
                                                             train):
             if remat:
-                x = checkpoint(self._layer, kind, p, views, window, rolling,
-                               x, sin, cos, enc, use_reentrant=False)
+                x = checkpoint(rules.bind_ctx(self._layer), kind, p, views,
+                               window, rolling, x, sin, cos, enc,
+                               use_reentrant=False)
             else:
                 x = self._layer(kind, p, views, window, rolling, x, sin, cos,
                                 enc)
@@ -453,7 +519,7 @@ class Model(nn.Module):
             if views is not None:
                 views[0].copy_(conv)
                 views[1].copy_(state)
-            return x + y
+            return x + shard(y, "batch", "seq", None)
         x, kv = self._attn_train(p, x, sin, cos, window)
         if kind == "dec":
             x, cross = self._attn_nocausal(p, x, kv_from=enc)
@@ -484,13 +550,15 @@ class Model(nn.Module):
         if key not in self._enc_pos:
             self._enc_pos[key] = _sinusoid(key[0], c.d_model).to(
                 frames.device, cdt)
-        h = frames.to(cdt) + self._enc_pos[key][None]
+        h = shard(frames.to(cdt) + self._enc_pos[key][None], "batch", None,
+                  None)
         train = self._training(params)
         pick = self._picker(params, train)
         for i in range(c.n_enc_layers):
             p = pick("enc", i)
             if c.remat and train:
-                h = checkpoint(self._enc_layer, p, h, use_reentrant=False)
+                h = checkpoint(rules.bind_ctx(self._enc_layer), p, h,
+                               use_reentrant=False)
             else:
                 h = self._enc_layer(p, h)
         return rms_norm(h, params["ln_enc_final"], c.norm_eps)
@@ -516,7 +584,35 @@ class Model(nn.Module):
 
     # ================================================================ decode
     def init_cache(self, batch_size: int, seq_len: int, device=None,
-                   params: Params | None = None, batch: dict | None = None):
+                   params: Params | None = None, batch: dict | None = None,
+                   abstract: bool = False):
+        """The decode cache of :meth:`_zero_cache`; with ``abstract`` as
+        meta tensors (shapes and dtypes, no storage; no cross K/V
+        computed). Under a device mesh each leaf is a DTensor laid out by
+        :meth:`cache_axes` (its sequence over 'kv_seq', its batch over
+        'batch')."""
+        if abstract:
+            return self._zero_cache(batch_size, seq_len, torch.device("meta"))
+        dev = resolve_device(device)
+        if not rules.is_device_mesh(rules.current_mesh()):
+            return self._zero_cache(batch_size, seq_len, dev, params, batch)
+        # each rank allocates its own shard of each leaf, never the whole
+        axes = self.cache_axes()
+        cache = {k: rules.sharded_zeros(v, axes[k], dev) for k, v in
+                 self._zero_cache(batch_size, seq_len,
+                                  torch.device("meta")).items()}
+        if params is not None and batch is not None and "k_cross" in cache:
+            kc, vc = self.cross_kv(params, self.encode(params,
+                                                       batch["frames"]))
+            cdt = _dt(self.cfg.compute_dtype)
+            cache["k_cross"] = rules.distribute(kc.to(device=dev, dtype=cdt),
+                                                axes["k_cross"])
+            cache["v_cross"] = rules.distribute(vc.to(device=dev, dtype=cdt),
+                                                axes["v_cross"])
+        return cache
+
+    def _zero_cache(self, batch_size: int, seq_len: int, dev: torch.device,
+                    params: Params | None = None, batch: dict | None = None):
         """Zeroed decode cache for a max context of ``seq_len``: per-slot
         positions ``pos`` (B,) int32; attention K/V (n, B, S, Hkv, hd),
         windowed layers' rolling K/V of w = min(window, seq_len) slots
@@ -529,7 +625,6 @@ class Model(nn.Module):
         cross K/V are those of the encoder's output over the frames, as
         the reference's; otherwise zeros."""
         c = self.cfg
-        dev = resolve_device(device)
         cdt = _dt(c.compute_dtype)
         b = batch_size
 
@@ -559,7 +654,8 @@ class Model(nn.Module):
         if c.kind in ENCDEC_KINDS:
             cache["k_self"] = zeros(kv(c.n_layers))
             cache["v_self"] = zeros(kv(c.n_layers))
-            if params is not None and batch is not None:
+            if params is not None and batch is not None and \
+                    dev.type != "meta":
                 kc, vc = self.cross_kv(params, self.encode(params,
                                                            batch["frames"]))
                 cache["k_cross"] = kc.to(device=dev, dtype=cdt)
@@ -653,12 +749,12 @@ class Model(nn.Module):
         smax = k_cache.shape[1]
         prefix = CROSS if cross else ""
         h = rms_norm(x, p[prefix + "ln_attn"], c.norm_eps)
-        q = (h @ p[prefix + "wq"]).reshape(b, 1, c.n_heads, c.hd)
+        q = _heads(h @ p[prefix + "wq"], 1, c.n_heads)
         if cross:
             o = decode_attention(q[:, 0], k_cache, v_cache, pos=smax - 1)
             return x + o.reshape(b, 1, -1) @ p[prefix + "wo"]
-        k = (h @ p["wk"]).reshape(b, 1, c.n_kv_heads, c.hd)
-        v = (h @ p["wv"]).reshape(b, 1, c.n_kv_heads, c.hd)
+        k = _heads(h @ p["wk"], 1, c.n_kv_heads)
+        v = _heads(h @ p["wv"], 1, c.n_kv_heads)
         # pos is per-slot (B,): each lane rotates and writes at its own
         # position, so mid-run admissions decode exactly as if solo
         sin, cos = rope_table(pos[:, None], c.hd, c.rope_theta)
@@ -666,11 +762,8 @@ class Model(nn.Module):
         k = apply_rope(k, sin, cos)
         slot = torch.remainder(pos, smax) if rolling \
             else torch.clamp(pos, max=smax - 1)
-        rows = torch.arange(b, device=x.device) * smax + slot
-        k_cache.view(b * smax, c.n_kv_heads, c.hd).index_copy_(
-            0, rows, k[:, 0].to(k_cache.dtype))
-        v_cache.view(b * smax, c.n_kv_heads, c.hd).index_copy_(
-            0, rows, v[:, 0].to(v_cache.dtype))
+        _write_lanes(k_cache, k[:, 0], slot)
+        _write_lanes(v_cache, v[:, 0], slot)
         o = decode_attention(q[:, 0], k_cache, v_cache, pos=pos)
         return x + o.reshape(b, 1, -1) @ p["wo"]
 
@@ -679,8 +772,9 @@ class Model(nn.Module):
         updated in place."""
         c = self.cfg
         pos = cache["pos"]
-        x = embedloss.embed_in(params["embed"], tokens[:, None],
-                               _dt(c.compute_dtype))
+        x = shard(embedloss.embed_in(params["embed"], tokens[:, None],
+                                     _dt(c.compute_dtype)), "batch", None,
+                  None)
         for kind, p, views, _, rolling in self._layers(params, cache):
             if kind == "mamba":
                 h = rms_norm(x, p["ln_ssm"], c.norm_eps)
@@ -724,11 +818,54 @@ def _sinusoid(n: int, d: int) -> torch.Tensor:
     return torch.from_numpy(out.astype(np.float32))
 
 
+def _heads(t: torch.Tensor, s: int, n: int) -> torch.Tensor:
+    """A projection (B, S, n*hd) as (B, S, n, hd). DTensor cannot split a
+    dim sharded over more ranks than its n heads (phi3's 10 KV heads on a
+    model axis of 16): such a projection is gathered along its last dim
+    first, as the attention's ``shard_map`` would gather it anyway."""
+    if rules.is_dtensor(t) and n % rules.dim_shards(t, t.dim() - 1):
+        t = rules.gather_dims(t, (t.dim() - 1,))
+    return t.reshape(t.shape[0], s, n, t.shape[-1] // n)
+
+
+def _write_lanes(cache: torch.Tensor, new: torch.Tensor,
+                 slot: torch.Tensor) -> None:
+    """Each lane's new row, new (B, Hkv, hd), into its cache view (B, S,
+    Hkv, hd) in place at ``slot`` (B,), computed on the device: no host
+    sync, no branch on a device value. A cache sharded over a mesh (a
+    DTensor, for which DTensor has no in-place indexed write) is written
+    shard by shard: each rank writes the lanes of its batch shard whose
+    slot falls in its sequence shard, and rewrites the others' rows as
+    they are."""
+    if not rules.is_dtensor(cache):
+        b, smax = cache.shape[:2]
+        rows = torch.arange(b, device=cache.device) * smax + slot
+        cache.view(b * smax, *cache.shape[2:]).index_copy_(
+            0, rows, new.to(cache.dtype))
+        return
+    loc, off = rules.local_part(cache)
+    bl, sl = loc.shape[:2]
+    lanes = slice(off[0], off[0] + bl)
+    slot = rules.replicate(slot).to_local()[lanes]
+    new = rules.replicate(new).to_local()[lanes].to(loc.dtype)
+    inside = (slot >= off[1]) & (slot < off[1] + sl)
+    rows = torch.arange(bl, device=loc.device) * sl + \
+        (slot - off[1]).clamp(0, sl - 1)
+    flat = loc.view(bl * sl, *loc.shape[2:])
+    flat.index_copy_(0, rows, torch.where(inside[:, None, None], new,
+                                          flat[rows]))
+
+
 def _place(dst: torch.Tensor, src: torch.Tensor, rolling: bool) -> None:
     """One layer's prefill K or V, src (B, S, Hkv, hd), into its cache view
     dst (B, Smax, Hkv, hd) in place: rows 0..S-1, or in a rolling buffer of
     w slots position p at slot p % w, keeping the last w positions when
-    S > w (the reference's ``place_rolling``, with no rolled copy)."""
+    S > w (the reference's ``place_rolling``, with no rolled copy). A
+    cache sharded over a mesh is written shard by shard
+    (:func:`_place_sharded`)."""
+    if rules.is_dtensor(dst):
+        _place_sharded(dst, src, rolling)
+        return
     s, w = src.shape[1], dst.shape[1]
     if not rolling or s <= w:
         dst[:, :s].copy_(src)
@@ -736,3 +873,24 @@ def _place(dst: torch.Tensor, src: torch.Tensor, rolling: bool) -> None:
     r = s % w                  # slot of position s - w, the oldest kept
     dst[:, r:].copy_(src[:, s - w:s - r])
     dst[:, :r].copy_(src[:, s - r:])
+
+
+def _place_sharded(dst, src, rolling: bool) -> None:
+    """:func:`_place` for a cache view sharded over a mesh: the source (a
+    DTensor) is laid out as the view, but whole along its sequence, and
+    each rank fills the slots of its sequence shard with the positions
+    :func:`_place` puts there."""
+    loc, off = rules.local_part(dst)
+    # the source in the destination's layout, but whole along the sequence
+    srcl = src.redistribute(dst.device_mesh, rules.gathered(
+        dst.placements, (1,))).to_local()
+    s, w = srcl.shape[1], dst.shape[1]
+    j = torch.arange(off[1], off[1] + loc.shape[1])
+    if rolling and s > w:
+        pos = (s - w) + torch.remainder(j - (s - w), w)
+    else:
+        pos = torch.where(j < s, j, -1)
+    sel = (pos >= 0).nonzero()[:, 0]
+    loc.index_copy_(1, sel.to(loc.device),
+                    srcl.index_select(1, pos[sel].to(srcl.device)).to(
+                        loc.dtype))

@@ -16,6 +16,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import rules
+
 BLOCK = 128
 # leaves with more elements are updated a dim-0 slice at a time, which
 # bounds the fp32 transients (the reference's per-slice update,
@@ -132,8 +134,8 @@ def apply_updates(params, grads, opt_state, cfg: OptConfig):
     """One AdamW step. Returns (new_params, new_opt_state, metrics), new
     tensors throughout (the inputs are left as they are); metrics
     ``grad_norm`` and ``lr``, fp32 0-d tensors."""
-    step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    step = _whole(opt_state["step"]) + 1
+    gnorm = _whole(global_norm(grads))
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                        max=1.0)
     lr = lr_at(cfg, step)
@@ -164,6 +166,8 @@ def apply_updates(params, grads, opt_state, cfg: OptConfig):
         return new_p, m_f, v_f
 
     def upd(p, g, m, v):
+        if rules.is_dtensor(p):
+            return upd_sharded(p, g, m, v)
         if p.numel() <= SLICE_NUMEL:
             return upd_flat(p, g, m, v)
         n = p.shape[0]
@@ -182,11 +186,63 @@ def apply_updates(params, grads, opt_state, cfg: OptConfig):
                 _moment_map(lambda d, s_: d[sl].copy_(s_), dst, src)
         return out
 
+    def upd_sharded(p, g, m, v):
+        # AdamW is elementwise: each rank updates its own shard, laid out
+        # as the moments are (ZeRO), and the new parameter goes back to
+        # the parameter's layout. The int8 blocks run along the last dim,
+        # which is gathered first only where a shard would cut a block.
+        from torch.distributed.tensor import DTensor
+        mesh = p.device_mesh
+        pl = (_block_placements(m["q"], p.shape[-1]) if quantized
+              else tuple(m.placements))
+
+        def local(t):
+            return _relayout(t, pl).to_local()
+
+        def back(t, ref):
+            return _relayout(DTensor.from_local(
+                t, mesh, pl, run_check=False, shape=ref.shape,
+                stride=ref.stride()), ref.placements)
+
+        new_p, new_m, new_v = upd(local(p), local(g), _moment_map(local, m),
+                                  _moment_map(local, v))
+        return (back(new_p, p), _moment_map(back, new_m, m),
+                _moment_map(back, new_v, v))
+
     out = tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
     new_state = {"m": tree_map(lambda o: o[1], out),
                  "v": tree_map(lambda o: o[2], out), "step": step}
     return (tree_map(lambda o: o[0], out), new_state,
             {"grad_norm": gnorm, "lr": lr})
+
+
+def _relayout(t, pl):
+    """The DTensor ``t`` laid out by placements ``pl``: the new shards are
+    cut first (a local slice, no collective), then the old ones gathered,
+    so that a gather yields no more than the new shard."""
+    from torch.distributed.tensor import Replicate
+    pl = tuple(pl)
+    cut = tuple(new if isinstance(old, Replicate) else old
+                for old, new in zip(t.placements, pl))
+    for step in (cut, pl):
+        if tuple(t.placements) != step:
+            t = t.redistribute(t.device_mesh, step)
+    return t
+
+
+def _block_placements(q, n: int) -> tuple:
+    """The int8 moment ``q``'s placements (its parameter's last dim is
+    ``n``), its last dim made whole unless every shard of it holds whole
+    blocks of the parameter."""
+    last = q.dim() - 1
+    if n % (rules.dim_shards(q, last) * BLOCK) == 0:
+        return tuple(q.placements)
+    return rules.gathered(q.placements, {last})
+
+
+def _whole(t):
+    """A DTensor's whole value as a plain tensor; a tensor as it is."""
+    return t.full_tensor() if rules.is_dtensor(t) else t
 
 
 def _moment_map(fn, m, *rest):

@@ -215,16 +215,12 @@ def test_window_attention_xla_matches_jax(case):
 def test_attend_matches_jax(impl, causal, window, q_offset):
     """``attend`` on each path against the reference's plain ``attend``
     (its ``pallas`` is the port's ``kernel``, the plain version on the
-    CPU); the kernel takes no query offset and says so."""
+    CPU); the kernel takes a query offset, as the reference's does not."""
     b, hq, hkv, s, d = 1, 4, 2, 160, 32
     arrs = [a.transpose(0, 2, 1, 3) for a in _qkv(12, b, hq, hkv, s, s, d)]
     (q, k, v), (jq, jk, jv) = _both(arrs, torch.float32, jnp.float32)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     ref = jattn.attend(jq, jk, jv, impl="xla_flash", **kw)
-    if impl == "kernel" and q_offset:
-        with pytest.raises(ValueError, match="offset"):
-            tattn.attend(q, k, v, impl=impl, **kw)
-        return
     out = tattn.attend(q, k, v, impl=impl, **kw)
     assert _err(out, ref) < 2e-5
     assert _err(out, jattn.attend(jq, jk, jv, impl="naive", **kw)) < 2e-5
@@ -353,3 +349,51 @@ def test_tc_emulation_matches_jax_bf16(case, two_pass):
     assert out.shape == (b, hq, sq, d)
     assert _err(out, ref) < 2e-2
     assert _err(out, np.asarray(xla, np.float32).transpose(0, 2, 1, 3)) < 2e-2
+
+
+@pytest.mark.parametrize("window", [0, 20], ids=["causal", "window20"])
+@pytest.mark.parametrize("start", [0, 16, 32, 48])
+def test_kernel_plain_version_takes_query_offset(start, window):
+    """Four query slices of 16 tile a causal 64 x 64 problem: each slice at
+    its offset against the whole K/V, through the kernels' plain version
+    and its backward, equals the reference's ``naive_attention(q_offset=)``
+    and autograd of it (fp32, 2e-5), and both wrappers give the same
+    slice of the unsplit call."""
+    import jax
+    from repro.models.attention import naive_attention
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_kernel_bwd_ref, attention_kernel_ref)
+    b, hq, hkv, s, d = 2, 4, 2, 64, 16
+    q, k, v = _qkv(21, b, hq, hkv, s, s, d)
+    do = np.random.default_rng(22).normal(
+        size=(b, hq, 16, d)).astype(np.float32)
+    qs = q[:, :, start:start + 16]
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (qs, k, v, do))
+    out = attention_kernel_ref(tq, tk, tv, causal=True, window=window,
+                               q_offset=start)
+
+    def jfn(q_, k_, v_):
+        return naive_attention(q_.transpose(0, 2, 1, 3),
+                               k_.transpose(0, 2, 1, 3),
+                               v_.transpose(0, 2, 1, 3), causal=True,
+                               window=window, q_offset=start
+                               ).transpose(0, 2, 1, 3)
+
+    ref, vjp = jax.vjp(jfn, *(jnp.asarray(a) for a in (qs, k, v)))
+    assert _err(out, ref) < 2e-5
+    grads = attention_kernel_bwd_ref(tq, tk, tv, out, tdo, causal=True,
+                                     window=window, q_offset=start)
+    for g, r in zip(grads, vjp(jnp.asarray(do))):
+        assert _err(g, r) < 2e-5
+    # the autograd Function's backward is the same plain backward
+    lq, lk, lv = (t.clone().requires_grad_() for t in (tq, tk, tv))
+    o = fa.flash_attention_cuda(lq, lk, lv, causal=True, window=window,
+                                q_offset=start)
+    for g, r in zip(torch.autograd.grad(o, (lq, lk, lv), tdo), grads):
+        assert float((g - r).abs().max()) < 2e-5
+    full = torch.from_numpy(q)
+    for fn in (fa.flash_attention_cuda, chunked.chunked_attention_cuda):
+        whole = fn(full, tk, tv, causal=True, window=window)
+        part = fn(tq, tk, tv, causal=True, window=window, q_offset=start)
+        assert float((part - whole[:, :, start:start + 16]).abs().max()) \
+            < 2e-5

@@ -159,10 +159,10 @@ def fake_extension(monkeypatch):
 
     # autograd does not see inside an extension: the writes record nothing
     @torch.no_grad()
-    def attention(q, k, v, out, causal, window, scale):
+    def attention(q, k, v, out, causal, window, scale, q_offset):
         calls.append("attention")
         out.copy_(attention_kernel_ref(q, k, v, causal=causal,
-                                       window=window))
+                                       window=window, q_offset=q_offset))
 
     @torch.no_grad()
     def ssd(x, dt, a, bmat, cmat, y, state, init, keys, cstate, prev, q):
