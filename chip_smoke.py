@@ -1387,8 +1387,16 @@ def phase_governed_serve(cfg, model, params) -> None:
                         and all(0 <= t < cfg.vocab for t in r.out),
                         f"governed serve ({arm}): request {r.rid} has "
                         f"tokens {r.out}")
-        spans = [e.dur * 1e3 for e in tracer.drain()
-                 if e.ph == "X" and e.name == "serve/step"]
+        # a step's wall time up to its tokens' return, as before the
+        # engine's spans had children: ``serve/step`` less ``serve/emit``
+        events = tracer.drain()
+        steps, emits = ([e.dur for e in events
+                         if e.ph == "X" and e.name == name]
+                        for name in ("serve/step", "serve/emit"))
+        require(len(steps) == len(emits),
+                f"governed serve ({arm}): {len(steps)} steps, "
+                f"{len(emits)} emits")
+        spans = [(s - e) * 1e3 for s, e in zip(steps, emits)]
         walls = sorted(spans)
         planned = engine.metrics.snapshot()["histograms"]["serve/step_s"]
         log(phase="governed_serve", arch=cfg.name, arm=arm,

@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import fused_f32, matmul_f32
+from repro_torch.obs.ranges import profiler_range
 from repro_torch.sharding import rules
 
 _NEG = -1e30
@@ -166,7 +167,13 @@ def context_attention(q, k, v, *, causal=True, window=0, impl="kernel"):
     all-gather-KV context parallelism, each sequence shard at its absolute
     offset; or, when the query sequence does not divide the 'seq' axes,
     the local call on each rank's batch shard, the sequences whole (the
-    kernels take no DTensor)."""
+    kernels take no DTensor). While a profiler records, the call is one
+    ``attention`` range, whatever ``impl`` runs it."""
+    with profiler_range("attention"):
+        return _context_attention(q, k, v, causal, window, impl)
+
+
+def _context_attention(q, k, v, causal, window, impl):
     ctx = rules.current_ctx()
     mesh = ctx.mesh
     sq = q.shape[1]

@@ -34,9 +34,9 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from repro_torch.models.config import MoEConfig
+from repro_torch.obs.ranges import profiler_range
 from repro_torch.sharding import rules
 
 
@@ -112,19 +112,18 @@ def _combine(out_buf: torch.Tensor, slot: torch.Tensor,
 def moe_local(x2d: torch.Tensor, params: dict, cfg: MoEConfig
               ) -> torch.Tensor:
     """x2d (T, D) -> (T, D) in its dtype. ``params``: ``router`` (D, E),
-    ``w_gate`` / ``w_up`` (E, D, F), ``w_down`` (E, F, D). Its three parts
-    are ``torch.profiler`` ranges (``moe/...``), which cost nothing
-    outside a trace."""
+    ``w_gate`` / ``w_up`` (E, D, F), ``w_down`` (E, F, D). While a
+    profiler records, its three parts are ranges (``moe/...``)."""
     t, d = x2d.shape
-    with record_function("moe/route_dispatch"):
+    with profiler_range("moe/route_dispatch"):
         weights, experts = route(x2d, params["router"], cfg.top_k)
         cap = _capacity(t, cfg)
         slot = _dispatch_indices(experts, cfg.n_experts, cap)
         buf = _dispatch(x2d, slot, cfg.n_experts, cap)
-    with record_function("moe/experts"):
+    with profiler_range("moe/experts"):
         out = _expert_ffn(buf.reshape(cfg.n_experts, cap, d),
                           params["w_gate"], params["w_up"], params["w_down"])
-    with record_function("moe/combine"):
+    with profiler_range("moe/combine"):
         return _combine(out.reshape(-1, d), slot, weights, t,
                         d).to(x2d.dtype)
 

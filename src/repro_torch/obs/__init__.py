@@ -14,7 +14,9 @@
   - :mod:`~repro_torch.obs.power`   — measured-power ingestion: RAPL
     ``energy_uj`` logs and macOS ``powermetrics`` captures parsed into a
     :class:`PowerCapture` timeline, synthetic captures, and trace/schedule
-    alignment into :class:`CaptureWindow` calibration rows.
+    alignment into :class:`CaptureWindow` calibration rows;
+  - :mod:`~repro_torch.obs.ranges`  — :func:`profiler_range`: a
+    ``torch.profiler`` range only while a profiler records.
 """
 from .export import load_trace, to_chrome_events, write_perfetto  # noqa: F401
 from .metrics import MetricsRegistry  # noqa: F401
@@ -30,6 +32,7 @@ from .power import (  # noqa: F401
     synthesize_rapl_log,
     windows_from_schedule,
 )
+from .ranges import profiler_range  # noqa: F401
 from .report import (  # noqa: F401
     EnergyAttribution,
     StageAttribution,

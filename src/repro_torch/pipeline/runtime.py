@@ -79,7 +79,9 @@ Observability — two complementary channels:
     keeps the historical ``stop``/``rebuild``/``start`` sequence).
   - an optional ``repro_torch.obs.Tracer``: each worker becomes a named
     ``{stage}/r{replica}`` trace row emitting one complete span per
-    frame (cat ``"frame"``, args ``seq``/``wait_s``) — reusing the
+    frame (cat ``"frame"``, args ``seq``/``wait_s``) and, from its
+    second frame on, a ``runtime/handoff`` span (cat ``"runtime"``) from
+    its last frame's end to this frame's start — both reusing the
     timestamps the busy-metering already takes. Process workers record
     into a process-local ring and ship it back over a pipe when they
     retire (stop or rebuild); the parent merges it into the session
@@ -296,6 +298,7 @@ class StreamingPipelineRuntime:
             else {"variant": spec.variant}
         key = (spec.name, ri)
         sink = self._sink
+        t_prev = None       # the replica's last frame's t_done
         while True:
             item = q_in.get()
             if isinstance(item, _Sentinel):
@@ -328,11 +331,17 @@ class StreamingPipelineRuntime:
             self._replica_counts[key] = self._replica_counts.get(key, 0) + 1
             if tracing:
                 # reuses the busy-metering timestamps: tracing-on cost on
-                # the hot path is one ring append per (frame, stage)
+                # the hot path is two ring appends per (frame, stage), the
+                # frame's span and the hand-off since the replica's last
+                if t_prev is not None:
+                    tracer.complete("runtime/handoff", t_prev,
+                                    t_busy0 - t_prev, cat="runtime",
+                                    args={"seq": seq})
                 tracer.complete(spec.name, t_busy0, t_done - t_busy0,
                                 cat="frame",
                                 args={"seq": seq, "wait_s": t_busy0 - t_enq,
                                       **span_extra})
+            t_prev = t_done
             if q_out is not None:
                 q_out.put((seq, result, t_done))
             else:
@@ -362,6 +371,7 @@ class StreamingPipelineRuntime:
                          time.perf_counter(), 0.0, "", None))
         stats = ss.stats
         base = 3 * widx
+        t_prev = None       # the replica's last frame's t_done
         while True:
             try:
                 kind, seq, payload, t_enq = q_in.get(timeout=1.0)
@@ -392,8 +402,12 @@ class StreamingPipelineRuntime:
                 args = {"seq": seq, "wait_s": t_busy0 - t_enq}
                 if spec.variant != "base":
                     args["variant"] = spec.variant
+                if t_prev is not None:
+                    ring.append(("X", "runtime/handoff", t_prev,
+                                 t_busy0 - t_prev, "runtime", {"seq": seq}))
                 ring.append(("X", spec.name, t_busy0, t_done - t_busy0,
                              "frame", args))
+            t_prev = t_done
             if q_out is not None:
                 q_out.put(seq, result, t_done)
             else:

@@ -25,11 +25,18 @@ time (wall time around the call) is device time and not launch time. A
 tensor handed in from another replica's stream is recorded on this one
 (``record_stream``), so the caching allocator cannot give its block to the
 producer's stream while this stream still reads it.
+
+With an enabled ``tracer`` (a :class:`repro_torch.obs.Tracer`) a stage fn
+records one span per task, named as the task and in chain order (the
+host's time to issue it: ``emit`` waits for its copies), and a
+``stage/sync`` span around its wait for the stream; they nest in the
+runtime's span of the frame.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 
 import torch
 
@@ -43,12 +50,14 @@ from repro_torch.models.transformer import DENSE_KINDS, Model
 VARIANT_ATTN_IMPL = {"chunked": "chunked", "xla": "xla_flash"}
 
 
-def model_stage_builder(model: Model, params, names, *, device):
+def model_stage_builder(model: Model, params, names, *, device,
+                        tracer=None):
     """A three-argument ``from_plan`` builder ``(start, end, stage)`` over
     the chain task ``names`` of a model whose every layer is an attention
     block (the dense, windowed dense, moe and vlm families); the stage's
     ``variant`` (default "base") selects the layers' attention
-    implementation."""
+    implementation. ``tracer``: spans of each task and of the stream
+    wait while it is enabled."""
     cfg = model.cfg
     if cfg.kind not in DENSE_KINDS:
         raise NotImplementedError(
@@ -97,37 +106,47 @@ def model_stage_builder(model: Model, params, names, *, device):
                     task.startswith("layer") and task[5:].isdigit()):
                 raise ValueError(f"unknown chain task {task!r}")
 
-        def run(x):
+        def one(task, h):
+            if task == "ingest":
+                return to_device(h)
+            if task == "embed":
+                if not isinstance(h, torch.Tensor) or h.device != device:
+                    h = to_device(h)
+                return embedloss.embed_in(params["embed"], h,
+                                          getattr(torch, cfg.compute_dtype))
+            if task == "head":
+                h = rms_norm(h, params["ln_final"], cfg.norm_eps)[:, -1]
+                return (embedloss.greedy(h, params["embed"],
+                                         valid_vocab=cfg.vocab), h)
+            if task == "emit":
+                return (h[0].cpu().numpy(), h[1].float().cpu())
+            return _layer(m, layers[int(task[5:])], h, rope)
+
+        def run(x, tracing):
             h = x
             for task in tasks:
-                if task == "ingest":
-                    h = to_device(h)
-                elif task == "embed":
-                    if not isinstance(h, torch.Tensor) \
-                            or h.device != device:
-                        h = to_device(h)
-                    h = embedloss.embed_in(params["embed"], h,
-                                           getattr(torch, cfg.compute_dtype))
-                elif task == "head":
-                    h = rms_norm(h, params["ln_final"], cfg.norm_eps)[:, -1]
-                    h = (embedloss.greedy(h, params["embed"],
-                                          valid_vocab=cfg.vocab), h)
-                elif task == "emit":
-                    h = (h[0].cpu().numpy(), h[1].float().cpu())
-                else:
-                    h = _layer(m, layers[int(task[5:])], h, rope)
+                t = time.perf_counter() if tracing else 0.0
+                h = one(task, h)
+                if tracing:
+                    tracer.complete(task, t, time.perf_counter() - t,
+                                    cat="task")
             return h
 
         def fn(x):
+            tracing = tracer is not None and tracer.enabled
             s = stream()
             if s is None:
-                return run(x)
+                return run(x, tracing)
             for t in (x if isinstance(x, tuple) else (x,)):
                 if isinstance(t, torch.Tensor) and t.is_cuda:
                     t.record_stream(s)
             with torch.cuda.stream(s):
-                out = run(x)
+                out = run(x, tracing)
+            t = time.perf_counter() if tracing else 0.0
             s.synchronize()
+            if tracing:
+                tracer.complete("stage/sync", t, time.perf_counter() - t,
+                                cat="task")
             return out
 
         return fn

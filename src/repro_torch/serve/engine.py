@@ -44,7 +44,17 @@ is independent of the model and of the device.
 Observability (optional, duck-typed): a ``tracer`` with ``enabled``,
 ``complete``, ``counter`` and ``instant``, and a ``metrics`` registry with
 ``observe``, ``set_gauge`` and ``inc`` get the reference's ``serve/*``
-spans, counters and histograms.
+spans, counters and histograms. An enabled tracer also gets the phases of
+each ``serve/step`` as its children, which tile it: ``serve/admit`` (with
+one ``serve/lane_reset`` inside it per admission), ``serve/feed`` (the
+step's tokens assembled), ``serve/replay`` (their copy to the device and
+the step's launch: one graph replay on CUDA), ``serve/wait`` (the host
+blocked on the step's tokens) and ``serve/emit`` (the output
+bookkeeping); and, on the wall clock, three spans of each request,
+``serve/queued`` (arrival to admission), ``serve/prompt`` (admission to
+its first token) and ``serve/decode`` (first token to finish), each with
+its ``rid`` and recorded as its phase ends. Without an enabled tracer the
+step reads the clock no more often than it did before these spans.
 """
 from __future__ import annotations
 
@@ -74,6 +84,7 @@ class Request:
     rejected: bool = False             # dropped by admission control
     missed: bool = False               # finished past its deadline
     admitted_s: float | None = None
+    first_token_s: float | None = None  # when its first output token came
     finished_s: float | None = None
 
     @property
@@ -247,14 +258,19 @@ class ServeEngine:
         best = self._planned_step_s()
         return now + req.total_steps * best > req.deadline_s + 1e-12
 
-    def _admit(self) -> None:
+    def _admit(self, tracer=None) -> tuple[int, int]:
+        """Admit queued requests into free slots; returns how many were
+        admitted and how many expired. ``tracer``: an enabled tracer that
+        gets each lane reset (and, on the wall clock, each request's
+        ``serve/queued``)."""
         if self.admit_mode == "step0" and \
                 any(s is not None for s in self.slots):
-            return          # batch mode: refill only when every slot drained
+            return 0, 0     # batch mode: refill only when every slot drained
         now = self.now()
         free = [i for i, s in enumerate(self.slots) if s is None]
         if not free:
-            return
+            return 0, 0
+        admitted = expired = 0
         # FIFO scan with skip: a head whose deadline needs a faster plan
         # than the current mix allows stays queued (until feasible or
         # expired) without starving later requests that fit
@@ -263,23 +279,43 @@ class ServeEngine:
             req = self.queue.popleft()
             if self._expired(req, now):
                 self._reject(req)
+                expired += 1
                 continue
             if not self._admissible(req, now):
                 kept.append(req)
                 continue
             i = free.pop(0)
+            t = time.perf_counter() if tracer is not None else 0.0
             self.cache = self._reset_lane(self.cache, i)
+            if tracer is not None:
+                tracer.complete("serve/lane_reset", t,
+                                time.perf_counter() - t, cat="serve",
+                                args={"slot": i, "rid": req.rid})
+                if self.clock is None:
+                    tracer.complete("serve/queued", req.arrival_s,
+                                    now - req.arrival_s, cat="request",
+                                    args={"rid": req.rid})
             self.slots[i] = req
             self._pending[i] = list(req.prompt)
             req.admitted_s = now
+            admitted += 1
         kept.extend(self.queue)
         self.queue = kept
+        return admitted, expired
 
     # ----------------------------------------------------------------- step
     def step(self) -> None:
         """One engine step = one decode_step over the slot batch."""
         t0 = time.perf_counter()
-        self._admit()
+        tracer = self.tracer
+        if tracer is not None and not tracer.enabled:
+            tracer = None
+        admitted, expired = self._admit(tracer)
+        if tracer is not None:
+            t_feed = time.perf_counter()
+            tracer.complete("serve/admit", t0, t_feed - t0, cat="serve",
+                            args={"admitted": admitted, "expired": expired,
+                                  "queued": len(self.queue)})
         active = sum(1 for s in self.slots if s is not None)
         tokens = self._tokens.numpy()
         tokens[:] = 0
@@ -292,11 +328,21 @@ class ServeEngine:
                 tokens[i] = req.out[-1]
             else:
                 tokens[i] = req.prompt[-1]
+        if tracer is not None:
+            t_replay = time.perf_counter()
+            tracer.complete("serve/feed", t_feed, t_replay - t_feed,
+                            cat="serve")
         nxt, self.cache = self._step(
             self.params, self.cache,
             self._tokens.to(self.device, non_blocking=True))
+        if tracer is not None:
+            t_wait = time.perf_counter()
+            tracer.complete("serve/replay", t_replay, t_wait - t_replay,
+                            cat="serve")
         nxt = nxt.cpu().numpy()
         t1 = time.perf_counter()
+        if tracer is not None:
+            tracer.complete("serve/wait", t_wait, t1 - t_wait, cat="serve")
         if self.clock is not None:
             dt = self._planned_step_s()
             self.clock.advance(dt)
@@ -304,12 +350,20 @@ class ServeEngine:
             dt = t1 - t0
         self.last_step_s = dt
         now = self.now()
+        # the request spans are on the wall clock, as the tracer's are
+        req_spans = tracer is not None and self.clock is None
         emitted = completed = missed = 0
         for i, req in enumerate(self.slots):
             if req is None:
                 continue
             if self._pending[i]:
                 continue  # still prefills; ignore logits
+            if not req.out:
+                req.first_token_s = now
+                if req_spans:
+                    tracer.complete("serve/prompt", req.admitted_s,
+                                    now - req.admitted_s, cat="request",
+                                    args={"rid": req.rid})
             req.out.append(int(nxt[i]))
             emitted += 1
             if len(req.out) >= req.max_new_tokens:
@@ -321,9 +375,14 @@ class ServeEngine:
                     req.missed = True
                     missed += 1
                 self.slots[i] = None
-        tracer = self.tracer
-        if tracer is not None and tracer.enabled:
-            tracer.complete("serve/step", t0, t1 - t0, cat="serve",
+                if req_spans:
+                    tracer.complete("serve/decode", req.first_token_s,
+                                    now - req.first_token_s, cat="request",
+                                    args={"rid": req.rid})
+        if tracer is not None:
+            t_end = time.perf_counter()
+            tracer.complete("serve/emit", t1, t_end - t1, cat="serve")
+            tracer.complete("serve/step", t0, t_end - t0, cat="serve",
                             args={"active": active, "tokens": emitted})
             tracer.counter("serve/active_slots", active)
             tracer.counter("serve/queue_depth", len(self.queue))

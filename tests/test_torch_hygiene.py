@@ -3,7 +3,9 @@
 The port (``src/repro_torch``) and ``chip_smoke.py`` import nothing of JAX
 or of the JAX package, call no library attention (``chip_smoke.py`` times
 one call as its yardstick, in ``library_ms`` only) and no
-``torch.compile``, and never fall back: on a host with no CUDA the entry
+``torch.compile``, open a profiler range only through
+``obs.profiler_range`` (so an untraced run opens none), and never fall
+back: on a host with no CUDA the entry
 points raise unless asked for the CPU, the kernel wrappers (flash,
 chunked, SSD) raise on any tensor they cannot launch on instead of running
 the plain version, and the serving engine's captured step raises instead
@@ -61,6 +63,92 @@ def test_no_library_attention_or_compile():
             and n.attr == "scaled_dot_product_attention"]
     assert uses == ["library_ms"]
     assert SMOKE.read_text().count("scaled_dot_product_attention") == 2
+
+
+def test_profiler_ranges_only_through_the_helper():
+    """Outside ``obs/ranges.py`` no file of the port calls
+    ``record_function``."""
+    helper = PORT / "obs" / "ranges.py"
+    for path in sorted(PORT.rglob("*.py")):
+        if path == helper:
+            continue
+        tree = ast.parse(path.read_text(), str(path))
+        calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+                 and "record_function" in (getattr(n.func, "attr", None),
+                                           getattr(n.func, "id", None))]
+        assert not calls, path
+    assert "record_function(" in helper.read_text()
+
+
+def test_prefill_opens_attention_ranges_only_under_a_profiler(monkeypatch):
+    """A prefill opens one ``attention`` range per layer while a profiler
+    records, and none otherwise: ``record_function`` is never called."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_smoke_config("stablelm-3b")
+    model = Model(cfg)
+    params = model.init(0, device="cpu")
+    tokens = {"tokens": torch.zeros(1, 8, dtype=torch.int32)}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        model.forward(params, tokens)
+    names = [e.name for e in prof.events()]
+    assert names.count("attention") == cfg.n_layers
+
+    def refuse(name):
+        raise AssertionError(f"range {name!r} opened outside a trace")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    model.forward(params, tokens)
+
+
+def test_moe_parts_open_ranges_only_under_a_profiler(monkeypatch):
+    """``moe_local``'s three parts are ranges while a profiler records
+    (``chip_smoke.py``'s ``moe_parts_ms`` times them), and none otherwise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import moe
+    from repro_torch.models.config import MoEConfig
+
+    cfg = MoEConfig(8, 2, 16, capacity_factor=1.25)
+    gen = torch.Generator().manual_seed(0)
+    p = {k: torch.randn(*shape, generator=gen) for k, shape in (
+        ("router", (32, 8)), ("w_gate", (8, 32, 16)),
+        ("w_up", (8, 32, 16)), ("w_down", (8, 16, 32)))}
+    x = torch.randn(12, 32, generator=gen)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        moe.moe_local(x, p, cfg)
+    names = [e.name for e in prof.events() if e.name.startswith("moe/")]
+    assert sorted(names) == ["moe/combine", "moe/experts",
+                             "moe/route_dispatch"]
+
+    def refuse(name):
+        raise AssertionError(f"range {name!r} opened outside a trace")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    moe.moe_local(x, p, cfg)
+
+
+def test_profiler_flag_is_process_wide():
+    """``profiler_range`` reads torch's private, process-wide
+    ``torch.autograd.profiler._is_profiler_enabled``: it has to exist, be
+    False outside a profiler and True inside one, in the thread that
+    started the profiler and in any other."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch.autograd.profiler as tap
+
+    assert tap._is_profiler_enabled is False
+    seen = []
+    with profile(activities=[ProfilerActivity.CPU]):
+        seen.append(tap._is_profiler_enabled)
+        worker = threading.Thread(
+            target=lambda: seen.append(tap._is_profiler_enabled))
+        worker.start()
+        worker.join()
+    assert seen == [True, True]
+    assert tap._is_profiler_enabled is False
 
 
 def test_kernel_path_has_no_try_fallback():

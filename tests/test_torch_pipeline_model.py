@@ -31,6 +31,7 @@ from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.models.config import get_smoke_config  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
+from repro_torch.obs import Tracer  # noqa: E402
 from repro_torch.pipeline import (  # noqa: E402
     HeterogeneousSystem, StreamingPipelineRuntime, plan_pipeline)
 from repro_torch.pipeline.stages import model_stage_builder  # noqa: E402
@@ -163,6 +164,53 @@ def test_planned_model_chain_with_ingest_and_emit(setup):
         assert isinstance(tok, np.ndarray) and np.array_equal(tok, ref)
         full = tm.forward(tp, {"tokens": torch.as_tensor(frame)})
         assert torch.equal(hidden, full[:, -1].float())
+
+
+def test_task_and_handoff_spans(setup):
+    """With a tracer, each stage's fn records its tasks' spans once per
+    frame, in chain order, inside the runtime's span of that frame on the
+    same replica; a ``runtime/handoff`` span runs from each frame's end to
+    the replica's next frame's start. The tokens are unchanged."""
+    cfg, tm, tp, frames, want = setup
+    plan = plan_pipeline(cfg, system=HeterogeneousSystem.default(2, 2),
+                         tokens_per_step=12, mode="prefill")
+    tracer = Tracer()
+    builder = model_stage_builder(tm, tp, plan.chain.names, device="cpu",
+                                  tracer=tracer)
+    rt = StreamingPipelineRuntime.from_plan(plan, builder,
+                                            tracer=tracer).start()
+    try:
+        res = rt.run(frames * 3, timeout_s=120.0)
+        stages = rt.stages
+    finally:
+        rt.stop()
+    for (tok, _), ref in zip(res["outputs"], want * 3):
+        assert np.array_equal(tok, ref)
+    spans = [e for e in tracer.drain() if e.ph == "X"]
+    sol = plan.freq_solution or plan.solution
+    assert len(stages) == len(sol.stages) > 1
+    tasks_of = {sp.name: list(plan.chain.names[st.start:st.end + 1])
+                for sp, st in zip(stages, sol.stages)}
+    frame_spans = [e for e in spans if e.cat == "frame"]
+    assert len(frame_spans) == len(stages) * len(frames) * 3
+    for f in frame_spans:
+        inside = [e.name for e in spans if e.cat == "task" and e.tid == f.tid
+                  and f.ts <= e.ts and e.ts + e.dur <= f.ts + f.dur]
+        assert inside == tasks_of[f.name]
+    tasks = [e for e in spans if e.cat == "task"]
+    assert len(tasks) == len(frames) * 3 * len(plan.chain.names)
+    handoffs = [e for e in spans if e.name == "runtime/handoff"]
+    assert all(e.cat == "runtime" for e in handoffs)
+    by_row = {}
+    for f in frame_spans:
+        by_row.setdefault((f.tid, f.name), []).append(f)
+    for row in by_row.values():
+        for a, b in zip(row, row[1:]):
+            (h,) = [e for e in handoffs if e.tid == a.tid
+                    and e.args["seq"] == b.args["seq"]]
+            assert h.ts == pytest.approx(a.ts + a.dur, abs=1e-9)
+            assert h.ts + h.dur == pytest.approx(b.ts, abs=1e-9)
+    assert len(handoffs) == sum(len(row) - 1 for row in by_row.values())
 
 
 def test_builder_rejects_what_the_chain_cannot_carry():

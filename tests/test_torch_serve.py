@@ -20,7 +20,9 @@ from repro.serve import SimClock as JaxClock  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models.config import get_smoke_config  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
+from repro_torch.obs import Tracer as PortTracer  # noqa: E402
 from repro_torch.serve import Request, ServeEngine, SimClock, step_need_s  # noqa: E402
+from repro_torch.serve import engine as engine_mod  # noqa: E402
 
 # dense, the Mamba2 stack, and the zamba2 hybrid (whose lane reset must wipe
 # the SSM conv/state leaves as well as the shared attention's K/V)
@@ -186,6 +188,120 @@ def test_engine_emits_trace_and_metrics():
     assert metrics.counter("serve/requests_done") == 2
     hist = metrics.snapshot()["histograms"]["serve/step_s"]
     assert hist["count"] == len(steps) and hist["p99"] > 0
+
+
+# five requests through two slots: three are admitted mid-run
+PHASE_SPECS = [([1, 2, 3], 4), ([4, 5], 3), ([6, 7, 8, 9], 2), ([3], 5),
+               ([2, 2], 3)]
+STEP_PHASES = ("serve/admit", "serve/feed", "serve/replay", "serve/wait",
+               "serve/emit")
+
+
+@pytest.fixture(scope="module")
+def smoke_lm():
+    tm = Model(get_smoke_config("stablelm-3b"))
+    return tm, tm.init(0, device="cpu")
+
+
+def _inside(inner, outer):
+    return outer.ts <= inner.ts and \
+        inner.ts + inner.dur <= outer.ts + outer.dur
+
+
+def test_step_phases_nest_in_and_tile_the_step(smoke_lm):
+    """Each ``serve/step`` holds one span of each phase, in order, and
+    they tile it; every ``serve/lane_reset`` lies inside a
+    ``serve/admit`` that admitted, one per admission."""
+    tracer = PortTracer()
+    _serve(ServeEngine, Request, *smoke_lm, PHASE_SPECS, 2, tracer=tracer)
+    spans = [e for e in tracer.drain() if e.ph == "X"]
+    steps = [e for e in spans if e.name == "serve/step"]
+    assert len(steps) > 10
+    for step in steps:
+        kids = [e for e in spans if e.cat == "serve" and e is not step
+                and _inside(e, step) and e.name in STEP_PHASES]
+        assert [e.name for e in kids] == list(STEP_PHASES)
+        for a, b in zip(kids, kids[1:]):
+            assert a.ts + a.dur == pytest.approx(b.ts, abs=1e-9)
+        assert sum(e.dur for e in kids) == pytest.approx(step.dur, rel=0.05)
+        assert kids[0].ts == step.ts
+    admits = [e for e in spans if e.name == "serve/admit"]
+    resets = [e for e in spans if e.name == "serve/lane_reset"]
+    assert len(resets) == len(PHASE_SPECS) \
+        == sum(e.args["admitted"] for e in admits)
+    for r in resets:
+        (admit,) = [a for a in admits if _inside(r, a)]
+        assert admit.args["admitted"] >= 1
+    assert sorted(r.args["rid"] for r in resets) == list(range(5))
+    assert {r.args["slot"] for r in resets} == {0, 1}
+
+
+def test_requests_stamp_first_token_and_record_their_phases(smoke_lm):
+    """Every finished request has ``admitted_s <= first_token_s <=
+    finished_s``; its ``serve/queued``, ``serve/prompt`` and
+    ``serve/decode`` spans share its ``rid`` and follow one another from
+    its arrival to its finish."""
+    tracer = PortTracer()
+    _, reqs = _serve(ServeEngine, Request, *smoke_lm, PHASE_SPECS, 2,
+                     tracer=tracer)
+    spans = [e for e in tracer.drain() if e.cat == "request"]
+    for r in reqs:
+        assert r.done
+        assert r.admitted_s <= r.first_token_s <= r.finished_s
+        mine = sorted((e for e in spans if e.args["rid"] == r.rid),
+                      key=lambda e: e.ts)
+        assert [e.name for e in mine] == ["serve/queued", "serve/prompt",
+                                          "serve/decode"]
+        queued, prompt, decode = mine
+        assert queued.ts == r.arrival_s
+        assert queued.ts + queued.dur == pytest.approx(r.admitted_s) \
+            == prompt.ts
+        assert prompt.ts + prompt.dur == pytest.approx(r.first_token_s) \
+            == decode.ts
+        assert decode.ts + decode.dur == pytest.approx(r.finished_s)
+
+
+def test_request_spans_only_on_the_wall_clock(smoke_lm):
+    """Under a :class:`SimClock` the first-token stamp is on the engine
+    clock and no request span is recorded (the tracer's clock is the
+    wall clock); the step's phases still are."""
+    tracer = PortTracer()
+    _, reqs = _serve(ServeEngine, Request, *smoke_lm, PHASE_SPECS, 2,
+                     tracer=tracer, clock=SimClock(), step_time_s=0.5)
+    for r in reqs:
+        assert r.admitted_s <= r.first_token_s <= r.finished_s
+        assert (r.first_token_s / 0.5).is_integer()
+    events = tracer.drain()
+    assert not any(e.cat == "request" for e in events)
+    assert any(e.name == "serve/wait" for e in events)
+
+
+def test_untraced_engine_serves_the_same_and_records_nothing(smoke_lm,
+                                                            monkeypatch):
+    """With no tracer, or a disabled one, the engine serves the same
+    tokens as with an enabled one, stamps the same request fields, records
+    nothing, and reads the clock no more often than without spans."""
+    reads = []
+    clock = engine_mod.time.perf_counter
+
+    def counted():
+        reads.append(1)
+        return clock()
+
+    runs = {}
+    for name, tracer in (("none", None), ("off", PortTracer(enabled=False)),
+                         ("on", PortTracer())):
+        reads.clear()
+        monkeypatch.setattr(engine_mod.time, "perf_counter", counted)
+        engine, reqs = _serve(ServeEngine, Request, *smoke_lm, PHASE_SPECS,
+                              2, tracer=tracer)
+        monkeypatch.setattr(engine_mod.time, "perf_counter", clock)
+        runs[name] = ([r.out for r in reqs], len(reads),
+                      tracer.drain() if tracer is not None else [])
+        assert all(r.first_token_s is not None for r in reqs)
+    assert runs["none"][0] == runs["off"][0] == runs["on"][0]
+    assert runs["off"][2] == [] and runs["on"][2]
+    assert runs["none"][1] == runs["off"][1] < runs["on"][1]
 
 
 def _sched_perf_specs():
