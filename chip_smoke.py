@@ -22,13 +22,22 @@ Phases, each printing one JSON line:
             kernel, plain and library
             (``scaled_dot_product_attention``, the yardstick only) times,
             the card's bound, TFLOP/s and the share of the bound.
+  pointwise : each fused pointwise kernel (the norm, the residual add
+            with the next norm, RoPE on q and k, SwiGLU's gate) at the
+            chain's shapes against the plain ops: RoPE, the gate and the
+            sum bit for bit, the norms within one bf16 ulp; kernel and
+            plain times, the bound and the share of it.
   prefill : phi3-medium-14b at full width, bf16, random weights from a
             seeded generator: ``Model.prefill`` of 4 x 2048 tokens, 40
-            kernel launches; every layer's cached K/V at every position
-            and the last hidden state against a prefill whose attention
-            is the plain chunked version, and against a control prefill
-            whose causal mask lets each query see one key ahead (the
-            gate must reject the control).
+            kernel launches and 40 of each fused pointwise kernel; every
+            layer's cached K/V at every position and the last hidden
+            state against a prefill whose attention is the plain chunked
+            version and whose pointwise ops are the plain ones, and
+            against a control prefill whose causal mask lets each query
+            see one key ahead (the gate must reject the control). Every
+            other family's bf16 prefill below also counts its fused
+            pointwise launches (one of each a causal attention block),
+            and its plain prefill runs the plain pointwise ops.
   decode  : 16 greedy ``decode_step``s from the prefilled cache; the
             same steps with the bf16 products widened to fp32 copies first
             (as before the fused fp32-output products) on a copy of the
@@ -316,6 +325,7 @@ from repro_torch.kernels.flash_attention import chunked as ca  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_kernel_ref  # noqa: E402
+from repro_torch.kernels.pointwise import kernel as pw  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_ref_sequential  # noqa: E402
 from repro_torch.models import (  # noqa: E402
@@ -357,6 +367,8 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 PHI3_ATTN = (4, 40, 10, 2048, 128)
 CACHE_LEN = 2064
 DECODE_STEPS = 16
+# calls timed back to back by the pointwise phase, one mean a kernel
+POINTWISE_BACK_TO_BACK = 20
 # bf16 prefill through 40 layers: the kernel and the plain version round
 # at different places (fp32 accumulate in a different order, bf16 outputs
 # per layer), so the last hidden state agrees to a few bf16 ulps of its
@@ -763,6 +775,103 @@ def phase_kernel(gen, added, peaks: tuple[float, float]) -> dict:
     return rec
 
 
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance of two bf16 tensors in units in the last
+    place."""
+    def ordered(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def phase_pointwise(peaks) -> None:
+    """Each fused pointwise kernel (``kernels/pointwise``) at the chain's
+    shapes, one frame of phi3-medium-14b: 2,048 rows of 5,120, q and k as
+    views of their projections (40 and 10 heads of 128, the shared fp32
+    tables), the gate's 2,048 x 17,920. RoPE, the gate and the residual
+    sum must equal the plain ops of ``models/layers.py`` bit for bit, the
+    norms within one bf16 ulp (the fp32 sum's order). Kernel and plain
+    times (the plain ops are PyTorch's own kernels, the library here), each
+    a mean over ``POINTWISE_BACK_TO_BACK`` calls between two events, so
+    that a launch's gap does not count; the bound (bytes over the memory
+    rate: every input read once, every output written once) and the share
+    of it."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 5)
+    cfg = get_config("phi3-medium-14b")
+    n, d, f, hd = PIPE_TOKENS, cfg.d_model, cfg.d_ff, cfg.hd
+    hq, hkv, eps = cfg.n_heads, cfg.n_kv_heads, cfg.norm_eps
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=DEVICE)
+                * scale).to(torch.bfloat16)
+
+    x, y, scale = randn(1, n, d, scale=3.0), randn(1, n, d), \
+        randn(d, scale=0.1)
+    q = randn(1, n, hq * hd, scale=4.0).view(1, n, hq, hd)
+    k = randn(1, n, hkv * hd, scale=4.0).view(1, n, hkv, hd)
+    sin, cos = layers.rope_table(torch.arange(n, device=DEVICE), hd,
+                                 cfg.rope_theta)
+    g, u = randn(1, n, f, scale=6.0), randn(1, n, f)
+
+    def plain_add_norm():
+        total = x + y
+        return total, layers.rms_norm(total, scale, eps)
+
+    def plain_rope():
+        return (layers.apply_rope(q, sin, cos),
+                layers.apply_rope(k, sin, cos))
+
+    want_q, want_k = plain_rope()
+    got_q, got_k = pw.rope_qk_cuda(q.clone(), k.clone(), sin, cos)
+    total, h = pw.add_rms_norm_cuda(x, y, scale, eps)
+    want_total, want_h = plain_add_norm()
+    errs = {
+        "rms_norm": {"max_ulps": bf16_ulps(pw.rms_norm_cuda(x, scale, eps),
+                                           layers.rms_norm(x, scale, eps))},
+        "add_rms_norm": {"max_ulps": bf16_ulps(h, want_h),
+                         "sum_equal": bool(torch.equal(total, want_total))},
+        "rope_qk": {"equal": bool(torch.equal(got_q, want_q)
+                                  and torch.equal(got_k, want_k))},
+        "swiglu_gate": {"equal": bool(torch.equal(
+            pw.swiglu_gate_cuda(g, u), F.silu(g) * u))}}
+    del want_q, want_k, got_q, got_k, total, h, want_total, want_h
+    require(errs["rms_norm"]["max_ulps"] <= 1
+            and errs["add_rms_norm"]["max_ulps"] <= 1
+            and errs["add_rms_norm"]["sum_equal"]
+            and errs["rope_qk"]["equal"] and errs["swiglu_gate"]["equal"],
+            f"fused pointwise kernels against the plain ops: {errs}")
+    # (kernel, plain ops, bytes); RoPE rotates q and k in place, so its
+    # timed calls rotate the rotated: the bytes are the same
+    cases = {
+        "rms_norm": (lambda: pw.rms_norm_cuda(x, scale, eps),
+                     lambda: layers.rms_norm(x, scale, eps),
+                     4 * n * d + 2 * d),
+        "add_rms_norm": (lambda: pw.add_rms_norm_cuda(x, y, scale, eps),
+                         plain_add_norm, 8 * n * d + 2 * d),
+        "rope_qk": (lambda: pw.rope_qk_cuda(q, k, sin, cos), plain_rope,
+                    4 * n * (hq + hkv) * hd + 4 * n * hd),
+        "swiglu_gate": (lambda: pw.swiglu_gate_cuda(g, u),
+                        lambda: F.silu(g) * u, 6 * n * f)}
+    recs = {}
+    def mean_ms(fn):
+        def calls():
+            for _ in range(POINTWISE_BACK_TO_BACK):
+                fn()
+        return time_ms(calls, reps=10) / POINTWISE_BACK_TO_BACK
+
+    for name, (kernel, plain, nbytes) in cases.items():
+        ms, plain_ms = mean_ms(kernel), mean_ms(plain)
+        bound_ms, bound_by = bound(0, nbytes, peaks)
+        recs[name] = dict(errs[name], ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          gb_per_s=nbytes / ms / 1e6,
+                          share_of_bound=bound_ms / ms,
+                          launches_a_frame=cfg.n_layers)
+    log(phase="pointwise", arch=cfg.name, rows=n, width=d, d_ff=f,
+        heads=[hq, hkv], head_dim=hd, dtype="bfloat16", kernels=recs)
+
+
 def attn_work(b, hq, hkv, s, d, window: int = 0, *, skv: int | None = None,
               causal: bool = True) -> tuple[int, int]:
     """(flops, bytes) of prefill attention of S queries over ``skv`` keys
@@ -891,7 +1000,7 @@ def phase_prefill(gen, rec: dict):
     init_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
 
-    fa.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     cache, last = model.prefill(params, batch, CACHE_LEN)
     torch.cuda.synchronize()
@@ -899,12 +1008,14 @@ def phase_prefill(gen, rec: dict):
     prefill_peak = torch.cuda.max_memory_allocated()
     launches = fa.launches
     require(launches == cfg.n_layers, f"{launches} kernel launches")
+    fused = require_pointwise("phi3 prefill", pointwise_want(cfg.n_layers))
     rec["launches"] = launches
 
     plain = Model(dataclasses.replace(cfg, attn_impl="xla_flash"))
-    plain_cache, plain_last = plain.prefill(params, batch, CACHE_LEN)
-    with causal_mask_one_ahead():
-        ctrl_cache, ctrl_last = plain.prefill(params, batch, CACHE_LEN)
+    with plain_pointwise():
+        plain_cache, plain_last = plain.prefill(params, batch, CACHE_LEN)
+        with causal_mask_one_ahead():
+            ctrl_cache, ctrl_last = plain.prefill(params, batch, CACHE_LEN)
     torch.cuda.synchronize()
 
     def last_rel(x):
@@ -931,7 +1042,8 @@ def phase_prefill(gen, rec: dict):
                             *params["layers"].values()]),
         init_s=init_s, batch=b, prompt=s, cache_len=CACHE_LEN,
         prefill_s=prefill_s, prefill_tokens_per_s=b * s / prefill_s,
-        flash_attention_launches=launches, rel_err_vs_plain=rel,
+        flash_attention_launches=launches, pointwise_launches=fused,
+        rel_err_vs_plain=rel,
         rel_err_limit=PREFILL_REL_TOL, control_rel_err=ctrl_rel,
         kv_rel_err=kv, kv_rel_err_late_half=kv_late, kv_worst_layer=kv_layer,
         kv_rel_err_limit=KV_REL_TOL, control_kv_rel_err=ctrl_kv,
@@ -1528,11 +1640,13 @@ def monolithic(cfg, model, params, frame):
     return tok.cpu().numpy(), last.float().cpu()
 
 
-def pipe_run(rt, frames, warmup: int, around=None):
+def pipe_run(rt, frames, warmup: int, layers: int, around=None):
     """``warmup`` frames through the started runtime ``rt`` (every replica
     makes its stream, the first launches), then ``frames`` with the
     launch counts set to 0 just before and read just after, inside the
-    context ``around`` (the power sampler). Returns (stats, launches)."""
+    context ``around`` (the power sampler). Every one of the ``layers``
+    layer tasks of every frame must launch each fused pointwise kernel
+    once. Returns (stats, launches, the fused pointwise launches)."""
     rt.run(frames[:warmup], timeout_s=600.0)
     if rt.tracer is not None:
         rt.tracer.drain()
@@ -1541,7 +1655,9 @@ def pipe_run(rt, frames, warmup: int, around=None):
     with around or contextlib.nullcontext():
         stats = rt.run(frames, timeout_s=600.0)
     launches = launch_counts()
-    return stats, launches
+    fused = require_pointwise(f"pipeline, {len(frames)} frames",
+                              pointwise_want(layers * len(frames)))
+    return stats, launches, fused
 
 
 def check_frames(plan: str, stats, order, refs) -> float:
@@ -1667,8 +1783,9 @@ def phase_pipeline(cfg, model, params, peaks) -> dict:
                                        / (probe["total_s"] / 4)))
         order_a, frames_a = frames(n_a)
         sampler = PowerSampler()
-        stats_a, launches_a = pipe_run(rt, frames_a, warmup=2,
-                                       around=sampler)
+        stats_a, launches_a, fused_a = pipe_run(rt, frames_a, warmup=2,
+                                                layers=n_layers,
+                                                around=sampler)
         events = to_chrome_events(tracer.drain(), t0=0.0)
         prof_a = _profile(lambda: rt.run(frames_a[:8], timeout_s=600.0))
     finally:
@@ -1704,7 +1821,8 @@ def phase_pipeline(cfg, model, params, peaks) -> dict:
         profile_top_ms=prof_a["top_ms"],
         tokens_per_s=PIPE_TOKENS * stats_a["throughput_fps"],
         busy_s=stats_a["busy_s"][(name_a, 0)], total_s=stats_a["total_s"],
-        launches=launches_a, tokens_equal_monolithic=True,
+        launches=launches_a, pointwise_launches=fused_a,
+        tokens_equal_monolithic=True,
         last_hidden_rel_err=rel_a, power_samples=len(samples),
         power_sampler_ms=PIPE_POWER_MS, capture_s=capture.extent,
         trace_extent_s=attr.extent_s, measured_j=attr.measured_j,
@@ -1728,7 +1846,8 @@ def phase_pipeline(cfg, model, params, peaks) -> dict:
     order_b, frames_b = frames(PIPE_FRAMES_B)
     rt = StreamingPipelineRuntime.from_plan(plan_b, builder).start()
     try:
-        stats_b, launches_b = pipe_run(rt, frames_b, warmup=6)
+        stats_b, launches_b, fused_b = pipe_run(rt, frames_b, warmup=6,
+                                                layers=n_layers)
         prof = _profile(lambda: rt.run(frames_b[:16], timeout_s=600.0))
     finally:
         rt.stop()
@@ -1752,7 +1871,8 @@ def phase_pipeline(cfg, model, params, peaks) -> dict:
         replica_frames={f"{k[0]}/r{k[1]}": v
                         for k, v in stats_b["replica_frames"].items()},
         total_s=stats_b["total_s"], launches=launches_b,
-        tokens_equal_monolithic=True, last_hidden_rel_err=rel_b,
+        pointwise_launches=fused_b, tokens_equal_monolithic=True,
+        last_hidden_rel_err=rel_b,
         rel_err_limit=PREFILL_REL_TOL,
         profile_16_frames={k: v for k, v in prof.items() if k != "top_ms"})
 
@@ -1768,7 +1888,8 @@ def phase_pipeline(cfg, model, params, peaks) -> dict:
         rt = StreamingPipelineRuntime([StageSpec(
             name_a, fn, device_class="big", variant=variant)]).start()
         try:
-            stats_f, launches_f = pipe_run(rt, frames_f, warmup=2)
+            stats_f, launches_f, _ = pipe_run(rt, frames_f, warmup=2,
+                                              layers=n_layers)
         finally:
             rt.stop()
         check_frames(f"C fit ({variant})", stats_f, order_f, refs)
@@ -1796,7 +1917,8 @@ def phase_pipeline(cfg, model, params, peaks) -> dict:
     order_c, frames_c = frames(PIPE_FRAMES_C)
     rt = StreamingPipelineRuntime.from_plan(plan_c, builder).start()
     try:
-        stats_c, launches_c = pipe_run(rt, frames_c, warmup=6)
+        stats_c, launches_c, fused_c = pipe_run(rt, frames_c, warmup=6,
+                                                layers=n_layers)
     finally:
         rt.stop()
     rel_c = check_frames("C", stats_c, order_c, refs)
@@ -1815,7 +1937,8 @@ def phase_pipeline(cfg, model, params, peaks) -> dict:
         planned_period_ms=plan_c.period_us / 1e3,
         measured_period_ms=stats_c["period_s"] * 1e3,
         launches=launches_c, launches_implied=want_c,
-        tokens_equal_monolithic=True, last_hidden_rel_err=rel_c)
+        pointwise_launches=fused_c, tokens_equal_monolithic=True,
+        last_hidden_rel_err=rel_c)
     log(phase="pipeline", arch=cfg.name, one_card_one_class=True,
         gemm_flop_s=rates["gemm_flop_s"], copy_bytes_s=rates["copy_bytes_s"])
     runs = {"A": launches_a, "B": launches_b, "C": launches_c}
@@ -2087,11 +2210,44 @@ def scan_output_in_bf16():
 
 def reset_launches() -> None:
     fa.launches = ca.launches = sk.launches = 0
+    pw.launches.update(dict.fromkeys(pw.launches, 0))
 
 
 def launch_counts() -> dict[str, int]:
     return {"ssd_scan": sk.launches, "flash_attention": fa.launches,
             "chunked_attention": ca.launches}
+
+
+@contextlib.contextmanager
+def plain_pointwise():
+    """The sequence forward's pointwise ops as the plain ops of
+    ``models/layers.py``, the fused kernels' route closed (``pw.takes``
+    false): the plain prefills that the gates hold the kernel paths
+    against."""
+    saved = pw.takes
+    pw.takes = lambda x: False
+    try:
+        yield
+    finally:
+        pw.takes = saved
+
+
+def pointwise_want(blocks: int, gates: int | None = None) -> dict[str, int]:
+    """The fused pointwise launches of a bf16 sequence forward through
+    ``blocks`` causal attention blocks: one norm, one RoPE and one
+    residual add with the next norm each, and ``gates`` SwiGLU gates (one a
+    block unless given)."""
+    return {"rms_norm": blocks, "add_rms_norm": blocks, "rope_qk": blocks,
+            "swiglu_gate": blocks if gates is None else gates}
+
+
+def require_pointwise(what: str, want: dict[str, int]) -> dict[str, int]:
+    """The fused pointwise launches since ``reset_launches`` must be
+    ``want``; returns them."""
+    got = dict(pw.launches)
+    require(got == want, f"{what}: fused pointwise launches {got}, want "
+            f"{want}")
+    return got
 
 
 def prefill_errs(cache, last, ref_cache, ref_last, s: int) -> dict:
@@ -2129,6 +2285,8 @@ def phase_zamba_prefill(gen, fa_rec, ca_rec, ssd_rec):
             "chunked_attention": 0}
     require(launches["bf16 kernel"] == want,
             f"zamba2 prefill launches {launches['bf16 kernel']}, want {want}")
+    launches["bf16 kernel pointwise"] = require_pointwise(
+        "zamba2 prefill", pointwise_want(model.n_super))
     require(last.shape == (b, cfg.d_model) and torch.isfinite(last).all(),
             "last hidden state shape or finiteness")
     # the same weights through the chunked kernel, and the plain paths
@@ -2145,16 +2303,19 @@ def phase_zamba_prefill(gen, fa_rec, ca_rec, ssd_rec):
     require(launches["bf16 chunked"] == want_c,
             f"chunked prefill launches {launches['bf16 chunked']}, "
             f"want {want_c}")
-    runs["plain"] = plain.prefill(params, batch, CACHE_LEN)
-    with ssd_dropped_carry():
-        runs["control"] = plain.prefill(params, batch, CACHE_LEN)
-    # logged only: two more plain paths that round at other places, the
-    # size of bf16's own noise beside the gated paths
-    runs["plain_naive"] = Model(dataclasses.replace(
-        cfg, attn_impl="naive", ssd_impl="blocked")).prefill(
-            params, batch, CACHE_LEN)
-    with scan_output_in_bf16():
-        runs["plain_round_y"] = plain.prefill(params, batch, CACHE_LEN)
+    launches["bf16 chunked pointwise"] = require_pointwise(
+        "zamba2 chunked prefill", pointwise_want(model.n_super))
+    with plain_pointwise():
+        runs["plain"] = plain.prefill(params, batch, CACHE_LEN)
+        with ssd_dropped_carry():
+            runs["control"] = plain.prefill(params, batch, CACHE_LEN)
+        # logged only: two more plain paths that round at other places,
+        # the size of bf16's own noise beside the gated paths
+        runs["plain_naive"] = Model(dataclasses.replace(
+            cfg, attn_impl="naive", ssd_impl="blocked")).prefill(
+                params, batch, CACHE_LEN)
+        with scan_output_in_bf16():
+            runs["plain_round_y"] = plain.prefill(params, batch, CACHE_LEN)
     runs["kernel"] = (cache, last)
     vs_plain = {k: prefill_errs(*runs[k], *runs["plain"], s)
                 for k in ("kernel", "chunked", "plain_naive",
@@ -2189,6 +2350,7 @@ def phase_zamba_prefill(gen, fa_rec, ca_rec, ssd_rec):
         run = Model(dataclasses.replace(cfg32, **impls)).prefill(
             p32, batch, CACHE_LEN)
         launches[f"fp32 {name}"] = launch_counts()
+        require_pointwise(f"zamba2 fp32 {name} prefill", pointwise_want(0))
         fp32[name] = prefill_errs(*run, *truth, s)
         del run
     require(launches["fp32 kernel"] == want
@@ -2328,6 +2490,8 @@ def phase_gemma_prefill(gen, fa_rec, ca_rec):
             "chunked_attention": 0}
     require(launches["kernel"] == want,
             f"gemma3 prefill launches {launches['kernel']}, want {want}")
+    launches["kernel pointwise"] = require_pointwise(
+        "gemma3 prefill", pointwise_want(cfg.n_layers))
     require(last.shape == (b, cfg.d_model) and torch.isfinite(last).all(),
             "last hidden state shape or finiteness")
     require(cache["k_local"].shape[-3] == GEMMA_WINDOW < s,
@@ -2344,16 +2508,20 @@ def phase_gemma_prefill(gen, fa_rec, ca_rec):
     require(launches["chunked"] == want_c,
             f"gemma3 chunked prefill launches {launches['chunked']}, "
             f"want {want_c}")
+    launches["chunked pointwise"] = require_pointwise(
+        "gemma3 chunked prefill", pointwise_want(cfg.n_layers))
     runs["kernel"] = (cache, last)
     plain = Model(dataclasses.replace(cfg, attn_impl="xla_flash"))
-    t0 = time.perf_counter()
-    plain_cache, plain_last = plain.prefill(params, batch, CACHE_LEN)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    for name, control in (("control_mask_one_ahead", causal_mask_one_ahead),
-                          ("control_window_ignored", window_ignored)):
-        with control():
-            runs[name] = plain.prefill(params, batch, CACHE_LEN)
+    with plain_pointwise():
+        t0 = time.perf_counter()
+        plain_cache, plain_last = plain.prefill(params, batch, CACHE_LEN)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        for name, control in (("control_mask_one_ahead",
+                               causal_mask_one_ahead),
+                              ("control_window_ignored", window_ignored)):
+            with control():
+                runs[name] = plain.prefill(params, batch, CACHE_LEN)
     errs = {}
     for name in list(runs):
         run_cache, run_last = runs.pop(name) if name != "kernel" \
@@ -2713,12 +2881,17 @@ def phase_moe_vlm_prefill(gen, cfg, model, params, info, fa_rec, ca_rec):
             "chunked_attention": 0}
     require(launches["kernel"] == want,
             f"{cfg.name} prefill launches {launches['kernel']}, want {want}")
+    # a dense SwiGLU beside the experts only with ``dense_residual``
+    want_pw = pointwise_want(cfg.n_layers, gates=cfg.n_layers if cfg.kind
+                             != "moe" or cfg.moe.dense_residual else 0)
+    launches["kernel pointwise"] = require_pointwise(
+        f"{cfg.name} prefill", want_pw)
     require(last.shape == (b, cfg.d_model) and torch.isfinite(last).all(),
             "last hidden state shape or finiteness")
 
     plain = Model(dataclasses.replace(cfg, attn_impl="xla_flash"))
     t0 = time.perf_counter()
-    with routing(record=routes["plain"]):
+    with routing(record=routes["plain"]), plain_pointwise():
         ref_cache, ref_hidden = forward_with_cache(plain, params, batch)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
@@ -2738,14 +2911,17 @@ def phase_moe_vlm_prefill(gen, cfg, model, params, info, fa_rec, ca_rec):
     require(launches["chunked"] == want_c,
             f"{cfg.name} chunked prefill launches {launches['chunked']}, "
             f"want {want_c}")
+    launches["chunked pointwise"] = require_pointwise(
+        f"{cfg.name} chunked prefill", want_pw)
     controls = ["control_mask_one_ahead"]
-    with routing(replay=replay), causal_mask_one_ahead():
-        runs["control_mask_one_ahead"] = forward_with_cache(plain, params,
-                                                            batch)
-    if cfg.kind == "vlm":
-        controls.append("control_patches_not_spliced")
-        runs["control_patches_not_spliced"] = forward_with_cache(
-            plain, params, {"tokens": tokens})
+    with plain_pointwise():
+        with routing(replay=replay), causal_mask_one_ahead():
+            runs["control_mask_one_ahead"] = forward_with_cache(
+                plain, params, batch)
+        if cfg.kind == "vlm":
+            controls.append("control_patches_not_spliced")
+            runs["control_patches_not_spliced"] = forward_with_cache(
+                plain, params, {"tokens": tokens})
     errs = {}
     for name in list(runs):
         run_cache, run_hidden = runs.pop(name)
@@ -2985,6 +3161,14 @@ def phase_whisper_prefill(gen, fa_rec, ca_rec):
             "chunked_attention": 0}
     require(launches["kernel"] == want,
             f"whisper prefill launches {launches['kernel']}, want {want}")
+    # an encoder layer: two norms and a gate; a decoder layer: norms before
+    # self-attention, cross-attention and the MLP, RoPE and a gate; no
+    # fused add (the decoder's cross-attention sits between the two)
+    enc, dec = cfg.n_enc_layers, cfg.n_layers
+    want_pw = {"rms_norm": 2 * enc + 3 * dec, "add_rms_norm": 0,
+               "rope_qk": dec, "swiglu_gate": enc + dec}
+    launches["kernel pointwise"] = require_pointwise("whisper prefill",
+                                                     want_pw)
     require(last.shape == (b, cfg.d_model) and torch.isfinite(last).all(),
             "last hidden state shape or finiteness")
 
@@ -2999,15 +3183,19 @@ def phase_whisper_prefill(gen, fa_rec, ca_rec):
     require(launches["chunked"] == want_c,
             f"whisper chunked prefill launches {launches['chunked']}, "
             f"want {want_c}")
+    launches["chunked pointwise"] = require_pointwise(
+        "whisper chunked prefill", want_pw)
     runs["kernel"] = (cache, last)
     plain = Model(dataclasses.replace(cfg, attn_impl="xla_flash"))
-    t0 = time.perf_counter()
-    plain_cache, plain_last = plain.prefill(params, batch, WHISPER_CACHE_LEN)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    with encoder_made_causal():
-        runs["control_encoder_causal"] = plain.prefill(params, batch,
-                                                       WHISPER_CACHE_LEN)
+    with plain_pointwise():
+        t0 = time.perf_counter()
+        plain_cache, plain_last = plain.prefill(params, batch,
+                                                WHISPER_CACHE_LEN)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        with encoder_made_causal():
+            runs["control_encoder_causal"] = plain.prefill(
+                params, batch, WHISPER_CACHE_LEN)
     rows = {"k_cross": t, "v_cross": t}
     cross = ("k_cross", "v_cross")
     filled = model.init_cache(b, WHISPER_CACHE_LEN, device=DEVICE,
@@ -3628,10 +3816,13 @@ def mesh_phi3(gen, mesh, fa_rec) -> None:
         torch.cuda.synchronize()
         return cache, last, time.perf_counter() - t1, fa.launches
 
+    # the no-mesh prefill with the plain pointwise ops, as the mesh's
+    # DTensors take them: the same ops on both sides of the gates
     with torch.no_grad():
-        cache, last, prefill_s, _ = timed_prefill(params)
-        plain_prof = _profile(lambda: model.prefill(params, batch,
-                                                    CACHE_LEN))
+        with plain_pointwise():
+            cache, last, prefill_s, _ = timed_prefill(params)
+            plain_prof = _profile(lambda: model.prefill(params, batch,
+                                                        CACHE_LEN))
         toks, times = decode(params, cache, last)
         with use_ctx(mesh):
             pd = rules.tree_map2(rules.distribute, params,
@@ -3860,6 +4051,7 @@ def main() -> int:
     peaks = PEAKS[card]
     usage = phase_build()
     fa_rec = phase_kernel(gen, added, peaks)
+    phase_pointwise(peaks)
     reset_launches()
     cfg, model, params, cache, last = phase_prefill(gen, fa_rec)
     phase_decode(cfg, model, params, cache, last, PHI3_ATTN[3])

@@ -31,6 +31,21 @@ cudaError_t ssd_scan_fwd_launch(
     const int64_t* b_strides, const int64_t* c_strides,
     const int64_t* y_strides, cudaStream_t stream);
 
+cudaError_t rms_norm_fwd_launch(const void* x, const void* y, void* sum,
+                                void* h, const void* scale, int scale_bf16,
+                                int64_t rows, int d, float eps,
+                                cudaStream_t stream);
+
+cudaError_t rope_qk_fwd_launch(void* q, void* k, const float* sn,
+                               const float* cs, int batch, int seq, int hq,
+                               int hkv, int hd, const int64_t* q_strides,
+                               const int64_t* k_strides,
+                               const int64_t* t_strides,
+                               cudaStream_t stream);
+
+cudaError_t swiglu_gate_fwd_launch(const void* g, const void* u, void* out,
+                                   int64_t n, cudaStream_t stream);
+
 namespace {
 
 using AttnLaunch = decltype(&flash_attention_fwd_launch);
@@ -113,10 +128,62 @@ void ssd_scan_fwd(const torch::Tensor& x, const torch::Tensor& dt,
               cudaGetErrorString(err));
 }
 
+// x, h (..., D) bf16 contiguous, scale (D,) bf16 or fp32; y and sum
+// empty for the plain norm, else like x: sum = x + y, h = norm(sum). The
+// Python wrapper has checked them.
+void rms_norm_fwd(const torch::Tensor& x, const torch::Tensor& y,
+                  const torch::Tensor& sum, const torch::Tensor& h,
+                  const torch::Tensor& scale, double eps) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  const int64_t d = x.size(-1);
+  const cudaError_t err = rms_norm_fwd_launch(
+      x.data_ptr(), y.numel() ? y.data_ptr() : nullptr,
+      sum.numel() ? sum.data_ptr() : nullptr, h.data_ptr(),
+      scale.data_ptr(), scale.scalar_type() == torch::kBFloat16 ? 1 : 0,
+      x.numel() / d, static_cast<int>(d), static_cast<float>(eps),
+      c10::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == cudaSuccess, "rms_norm kernel launch failed: ",
+              cudaGetErrorString(err));
+}
+
+// q (B, S, Hq, D), k (B, S, Hkv, D) bf16, head dims contiguous, rotated in
+// place; sin/cos fp32 (S, D/2) or (B, S, D/2), last dim contiguous. The
+// Python wrapper has checked them.
+void rope_qk_fwd(const torch::Tensor& q, const torch::Tensor& k,
+                 const torch::Tensor& sn, const torch::Tensor& cs) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  const std::array<int64_t, 3> qs{q.stride(0), q.stride(1), q.stride(2)},
+      ks{k.stride(0), k.stride(1), k.stride(2)};
+  const bool batched = sn.dim() == 3;
+  const std::array<int64_t, 2> ts{batched ? sn.stride(0) : 0,
+                                  sn.stride(batched ? 1 : 0)};
+  const cudaError_t err = rope_qk_fwd_launch(
+      q.data_ptr(), k.data_ptr(), sn.data_ptr<float>(), cs.data_ptr<float>(),
+      q.size(0), q.size(1), q.size(2), k.size(2), q.size(3), qs.data(),
+      ks.data(), ts.data(), c10::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == cudaSuccess, "rope_qk kernel launch failed: ",
+              cudaGetErrorString(err));
+}
+
+// g, u, out bf16 contiguous, of one shape. The Python wrapper has checked
+// them.
+void swiglu_gate_fwd(const torch::Tensor& g, const torch::Tensor& u,
+                     const torch::Tensor& out) {
+  const c10::cuda::CUDAGuard guard(g.device());
+  const cudaError_t err = swiglu_gate_fwd_launch(
+      g.data_ptr(), u.data_ptr(), out.data_ptr(), g.numel(),
+      c10::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == cudaSuccess, "swiglu_gate kernel launch failed: ",
+              cudaGetErrorString(err));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_attention_fwd", &flash_attention_fwd);
   m.def("chunked_attention_fwd", &chunked_attention_fwd);
   m.def("ssd_scan_fwd", &ssd_scan_fwd);
+  m.def("rms_norm_fwd", &rms_norm_fwd);
+  m.def("rope_qk_fwd", &rope_qk_fwd);
+  m.def("swiglu_gate_fwd", &swiglu_gate_fwd);
 }

@@ -46,6 +46,12 @@ and with ``cfg.remat`` each layer runs under
 reference's ``jax.checkpoint`` around each scanned layer body. Serving
 takes neither: its op sequence is the one its captured CUDA graph
 replays.
+
+A sequence forward (S > 1) of CUDA bf16 tensors that autograd does not
+record runs each attention block's pointwise ops through the hand-written
+kernels of ``kernels/pointwise``: the norms, RoPE on q and k in place, the
+attention's residual add fused with the next norm, SwiGLU's gate. Training,
+the CPU, fp32, DTensors and the decode step run the plain ops.
 """
 from __future__ import annotations
 
@@ -59,6 +65,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.autograd import needs_grad
+from repro_torch.kernels.pointwise import kernel as pw
 from repro_torch.models import embedloss
 from repro_torch.models.attention import context_attention, decode_attention
 from repro_torch.models.config import ModelConfig
@@ -315,29 +323,36 @@ class Model(nn.Module):
         return params
 
     # ------------------------------------------------------ shared pieces
-    def _attn_train(self, p, x, sin, cos, window):
+    def _attn_branch(self, p, x, sin, cos, window, fused):
+        """Causal self-attention with RoPE over the full sequence, before
+        its residual add: x (B, S, D) -> (its output (B, S, D), (k, v)),
+        for :meth:`_ffn` to add. With ``fused`` (:func:`fused_route`) the
+        norm and RoPE take the fused kernels."""
         c = self.cfg
         b, s, _ = x.shape
-        h = rms_norm(x, p["ln_attn"], c.norm_eps)
+        h = _norm(x, p["ln_attn"], c.norm_eps, fused)
         q = _heads(rules.matmul(h, p["wq"]), s, c.n_heads)
         k = _heads(rules.matmul(h, p["wk"]), s, c.n_kv_heads)
         v = _heads(rules.matmul(h, p["wv"]), s, c.n_kv_heads)
-        q = apply_rope(q, sin, cos)
-        k = apply_rope(k, sin, cos)
+        if fused:
+            q, k = pw.rope_qk_cuda(q, k, sin, cos)
+        else:
+            q = apply_rope(q, sin, cos)
+            k = apply_rope(k, sin, cos)
         o = context_attention(q, k, v, causal=True, window=window,
                               impl=c.attn_impl)
         o = rules.pin(o.reshape(b, s, -1))
-        return x + shard(rules.matmul(o, p["wo"]), "batch", "seq",
-                         None), (k, v)
+        return shard(rules.matmul(o, p["wo"]), "batch", "seq", None), (k, v)
 
-    def _attn_nocausal(self, p, x, kv_from=None):
+    def _attn_nocausal(self, p, x, kv_from=None, fused=False):
         """Encoder self-attention, or with ``kv_from`` (the encoder's
         output, not normed again) a decoder layer's cross-attention, whose
-        leaves are named with the ``CROSS`` prefix: no RoPE, no mask."""
+        leaves are named with the ``CROSS`` prefix: no RoPE, no mask. With
+        ``fused`` (:func:`fused_route`) its norm takes the fused kernel."""
         c = self.cfg
         b, s, _ = x.shape
         prefix = "" if kv_from is None else CROSS
-        h = rms_norm(x, p[prefix + "ln_attn"], c.norm_eps)
+        h = _norm(x, p[prefix + "ln_attn"], c.norm_eps, fused)
         src = h if kv_from is None else kv_from
         t = src.shape[1]
         q = _heads(rules.matmul(h, p[prefix + "wq"]), s, c.n_heads)
@@ -349,27 +364,41 @@ class Model(nn.Module):
         return x + shard(rules.matmul(o, p[prefix + "wo"]), "batch",
                          "seq", None), (k, v)
 
-    def _ffn(self, p, x):
+    def _ffn(self, p, x, y=None, fused=False):
         """The FFN block: SwiGLU, or in a MoE layer the experts (plus the
-        dense SwiGLU of the same normed input with ``dense_residual``)."""
+        dense SwiGLU of the same normed input with ``dense_residual``).
+        With ``y`` (an attention's output, :meth:`_attn_branch`) the
+        block's input is x + y, added in one pass with the norm when
+        ``fused`` (:func:`fused_route`); its own residual add stays one
+        add."""
         c = self.cfg
-        h = rms_norm(x, p["ln_mlp"], c.norm_eps)
+        if y is None:
+            h = _norm(x, p["ln_mlp"], c.norm_eps, fused)
+        elif fused:
+            x, h = pw.add_rms_norm_cuda(x, y, p["ln_mlp"], c.norm_eps)
+        else:
+            x = x + y
+            h = rms_norm(x, p["ln_mlp"], c.norm_eps)
         if "router" not in p:
-            y = self._dense_mlp(p, h)
+            y = self._dense_mlp(p, h, fused)
         else:
             y = moe_apply(h, {"router": p["router"],
                               "w_gate": p["moe_gate"], "w_up": p["moe_up"],
                               "w_down": p["moe_down"]}, c.moe)
             if c.moe.dense_residual:
-                y = y + self._dense_mlp(p, h)
+                y = y + self._dense_mlp(p, h, fused)
         return x + shard(y, "batch", "seq", None)
 
     @staticmethod
-    def _dense_mlp(p, h):
-        """SwiGLU, its hidden dim sharded over 'ff' under a mesh."""
-        hh = shard(F.silu(rules.matmul(h, p["w_gate"]))
-                   * rules.matmul(h, p["w_up"]), "batch", "seq", "ff")
-        return rules.matmul(hh, p["w_down"])
+    def _dense_mlp(p, h, fused=False):
+        """SwiGLU, its hidden dim sharded over 'ff' under a mesh; with
+        ``fused`` its gate in one kernel."""
+        g = rules.matmul(h, p["w_gate"])
+        if fused:
+            hh = pw.swiglu_gate_cuda(g, rules.matmul(h, p["w_up"]))
+        else:
+            hh = F.silu(g) * rules.matmul(h, p["w_up"])
+        return rules.matmul(shard(hh, "batch", "seq", "ff"), p["w_down"])
 
     @staticmethod
     def _index(tree: Params, *idx) -> dict[str, torch.Tensor]:
@@ -520,14 +549,16 @@ class Model(nn.Module):
                 views[0].copy_(conv)
                 views[1].copy_(state)
             return x + shard(y, "batch", "seq", None)
-        x, kv = self._attn_train(p, x, sin, cos, window)
+        fused = fused_route(x, p)
+        y, kv = self._attn_branch(p, x, sin, cos, window, fused)
         if kind == "dec":
-            x, cross = self._attn_nocausal(p, x, kv_from=enc)
-            kv = kv + cross
+            x, cross = self._attn_nocausal(p, x + y, kv_from=enc,
+                                           fused=fused)
+            y, kv = None, kv + cross
         if views is not None:
             for dst, src in zip(views, kv):
                 _place(dst, src, rolling)
-        return self._ffn(p, x)
+        return self._ffn(p, x, y, fused)
 
     def loss(self, params: Params, batch: dict) -> torch.Tensor:
         """Mean next-token cross-entropy of the batch's ``labels`` (ignored
@@ -565,8 +596,9 @@ class Model(nn.Module):
 
     def _enc_layer(self, p, h):
         """One encoder layer: non-causal self-attention and the MLP."""
-        h, _ = self._attn_nocausal(p, h)
-        return self._ffn(p, h)
+        fused = fused_route(h, p)
+        h, _ = self._attn_nocausal(p, h, fused=fused)
+        return self._ffn(p, h, fused=fused)
 
     def cross_kv(self, params: Params, enc_out: torch.Tensor):
         """Every decoder layer's cross-attention K and V of the encoder's
@@ -806,6 +838,22 @@ class Model(nn.Module):
         x = self.forward(params, batch, cache=cache)
         cache["pos"].fill_(s)
         return cache, x[:, -1]
+
+
+def fused_route(x: torch.Tensor, p: dict[str, torch.Tensor]) -> bool:
+    """Whether a layer's pointwise ops take the fused kernels
+    (``kernels/pointwise``), decided once a layer: its input x (B, S, D) is
+    a tensor the kernels take (``pw.takes``: CUDA bf16; not a DTensor),
+    S > 1, and autograd records neither x nor the layer's parameters ``p``
+    (training keeps the plain ops and their gradients). The decode step's
+    (B, 1, D) calls keep the plain ops."""
+    return x.shape[1] > 1 and pw.takes(x) and not rules.is_dtensor(x) \
+        and not needs_grad(x, *p.values())
+
+
+def _norm(x, scale, eps, fused):
+    """RMSNorm, by the fused kernel when ``fused``."""
+    return (pw.rms_norm_cuda if fused else rms_norm)(x, scale, eps)
 
 
 def _sinusoid(n: int, d: int) -> torch.Tensor:

@@ -42,7 +42,7 @@ import torch
 
 from repro_torch.models import embedloss
 from repro_torch.models.layers import rms_norm, rope_table
-from repro_torch.models.transformer import DENSE_KINDS, Model
+from repro_torch.models.transformer import DENSE_KINDS, Model, fused_route
 
 # plan variant name -> ``ModelConfig.attn_impl`` (the non-base variants of
 # ``kernels/registry.py``'s flash_attention family); "base" keeps the
@@ -160,5 +160,6 @@ def _layer(model: Model, layer, x: torch.Tensor, rope) -> torch.Tensor:
     gives the (sin, cos) tables."""
     _, p, _, window, _ = layer
     sin, cos = rope(x.shape[1])
-    x, _ = model._attn_train(p, x, sin, cos, window)
-    return model._ffn(p, x)
+    fused = fused_route(x, p)
+    y, _ = model._attn_branch(p, x, sin, cos, window, fused)
+    return model._ffn(p, x, y, fused)

@@ -7,8 +7,8 @@ one call as its yardstick, in ``library_ms`` only) and no
 ``obs.profiler_range`` (so an untraced run opens none), and never fall
 back: on a host with no CUDA the entry
 points raise unless asked for the CPU, the kernel wrappers (flash,
-chunked, SSD) raise on any tensor they cannot launch on instead of running
-the plain version, and the serving engine's captured step raises instead
+chunked, SSD, the fused pointwise ops) raise on any tensor they cannot
+launch on instead of running the plain version, and the serving engine's captured step raises instead
 of running eagerly."""
 import ast
 from pathlib import Path
@@ -22,6 +22,7 @@ from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import chunked  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
+from repro_torch.kernels.pointwise import kernel as pw  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
 from repro_torch.models.config import get_smoke_config  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
@@ -215,21 +216,40 @@ def test_kernel_wrapper_raises_instead_of_falling_back():
     assert fa.launches == before
 
 
-@pytest.mark.parametrize("wrapper", [fa.flash_attention_cuda,
-                                     chunked.chunked_attention_cuda],
-                         ids=["flash", "chunked"])
-def test_attention_wrappers_raise_instead_of_falling_back(wrapper):
-    """Both attention wrappers, on meta tensors and on a CPU/meta mix, at
-    zamba2's head dim: a raise, no launch, no plain version."""
+def _launch_count(name):
+    return {"flash": lambda: fa.launches,
+            "chunked": lambda: chunked.launches}.get(
+        name, lambda: pw.launches[name])()
+
+
+# each wrapper with its arguments' shapes: both attention wrappers at
+# zamba2's head dim, the fused pointwise wrappers at phi3's widths
+WRAPPER_CASES = {
+    "flash": (fa.flash_attention_cuda, [(1, 2, 8, 112)] * 3),
+    "chunked": (chunked.chunked_attention_cuda, [(1, 2, 8, 112)] * 3),
+    "rms_norm": (pw.rms_norm_cuda, [(1, 8, 5120), (5120,)]),
+    "add_rms_norm": (pw.add_rms_norm_cuda,
+                     [(1, 8, 5120), (1, 8, 5120), (5120,)]),
+    "rope_qk": (pw.rope_qk_cuda, [(1, 8, 40, 128), (1, 8, 10, 128),
+                                  (8, 64), (8, 64)]),
+    "swiglu_gate": (pw.swiglu_gate_cuda, [(1, 8, 17920)] * 2),
+}
+
+
+@pytest.mark.parametrize("name", list(WRAPPER_CASES))
+def test_attention_wrappers_raise_instead_of_falling_back(name):
+    """Both attention wrappers and the fused pointwise wrappers, on meta
+    tensors and on a CPU/meta mix: a raise, no launch, no plain
+    version."""
     _needs_no_cuda()
-    module = fa if wrapper is fa.flash_attention_cuda else chunked
-    before = module.launches
-    k = torch.empty(1, 2, 8, 112, device="meta")
+    wrapper, shapes = WRAPPER_CASES[name]
+    before = _launch_count(name)
+    meta = [torch.empty(*s, device="meta") for s in shapes]
     with pytest.raises(ValueError, match="CUDA"):
-        wrapper(k, k, k)
+        wrapper(*meta)
     with pytest.raises(ValueError, match="CUDA"):
-        wrapper(torch.zeros(1, 2, 8, 112), k, k)
-    assert module.launches == before
+        wrapper(torch.zeros(shapes[0]), *meta[1:])
+    assert _launch_count(name) == before
 
 
 def test_ssd_wrapper_raises_instead_of_falling_back():
