@@ -1,0 +1,27 @@
+"""Zamba2's whole decode step's share of the card's peak: over the engine
+steps inside the window, the least time each could take at the card's
+peaks (``work_zamba2.decode_step_work`` for its live lanes and their
+positions: the larger of its FLOPs over the bf16 peak and its bytes over
+the HBM rate) over the time the steps took, as ``mfu.serve`` reads a
+dense step."""
+from bench import work, work_zamba2
+
+LAYER = "models/transformer.py decode_step"
+SOURCE = "host_clock"
+UNIT = "%"
+BETTER = "higher"
+MOVES = "tokens_per_s"
+
+
+def read(rec):
+    serve, peaks = rec.get("serve"), rec.get("peaks")
+    if not serve or not serve["steps"] or not peaks \
+            or not rec["dims"].get("hybrid_layer_ids"):
+        return None
+    least = took = 0.0
+    for before, after, lanes, keys, _ in serve["steps"]:
+        flops, nbytes = work_zamba2.decode_step_work(rec["dims"], lanes, keys)
+        least += work.bound_s(flops, nbytes, (peaks["bf16_flops"],
+                                              peaks["hbm_bytes_per_s"]))[0]
+        took += after - before
+    return 100.0 * least / took

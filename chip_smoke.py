@@ -124,7 +124,26 @@ Then phi3's 28 GB are freed and zamba2-7b (Mamba2 + shared attention) runs:
             logged beside them, the size of bf16's own noise.
   decode, serve, profile : as for phi3; the fp32 witness has every
             layer.
-Then zamba2's 13 GB are freed and mamba2-1.3b (the ssm family, whole,
+Then zamba2's 13 GB are freed and zamba2-7b-instruct (Zyphra's published
+hybrid, 81 layers, 14.7 GB) runs:
+  zamba2_instruct : both attention kernels at its shared blocks' shape
+            (4, 32, 32, 2048, 224), softmax scale (224 / 2)^-1/2, and the
+            SSD kernel with two B/C groups at a layer's shape (4 x 2048,
+            112 heads of 64, d_state 64), bf16, against their plain
+            versions: times, the bound, the share of it, the SSD's four
+            kernels' device times; a bf16 prefill of 2 x 2048 tokens
+            (exactly 81 SSD and 13 flash launches, 26 fused norms and 13
+            fused RoPEs, no fused add or gate) whose hidden states of its
+            first row lie against the fp32 reference of the benchmark
+            (``bench/reference/zamba2.py``) within 1.5x the plain path's
+            (plain attention, blocked plain SSD, plain pointwise ops); and
+            the device ms of the program's ranges (``zamba2/shared_block``,
+            ``attention``, ``mamba/conv``, ``mamba/scan`` or
+            ``mamba/update``, ``mamba/gated_norm``) in a 2,048-token
+            prefill and in one eager decode step of 96 lanes at position
+            200 of a 384-slot cache. ``python3 chip_smoke.py
+            zamba2_instruct`` builds the kernels and runs this phase alone.
+Then its weights are freed and mamba2-1.3b (the ssm family, whole,
 2.7 GB) serves as phi3 does, with an fp32 witness of every layer. Then
 gemma3-12b (40 sliding-window layers of
 window 1024 and 8 global layers, head dim 256) runs:
@@ -427,6 +446,17 @@ UNALIGNED_CASE = (1, 90, 3, 12, 20, 32)
 # its plain version on the same bf16 inputs: y is rounded to bf16 (2^-8 =
 # 3.9e-3 of its largest entries), the state stays fp32
 SSD_Y_REL_TOL, SSD_STATE_REL_TOL = 1e-2, 1e-3
+# zamba2-7b-instruct: its shared attention at the prefill shape, one
+# Mamba2 layer's SSD (b, l, h, p, groups, n, chunk), the prefill, the
+# rows held against the fp32 reference, the eager decode step (lanes,
+# slots, position) and the program's ranges read
+ZI_ATTN = (4, 32, 32, 2048, 224)
+ZI_SSD = (4, 2048, 112, 64, 2, 64, 256)
+ZI_PREFILL = (2, 2048)
+ZI_REF_ROWS = 1
+ZI_DECODE = (96, 384, 200)
+ZI_RANGES = ("zamba2/shared_block", "attention", "mamba/conv", "mamba/scan",
+             "mamba/update", "mamba/gated_norm")
 # zamba2's prefill through 81 Mamba2 layers and 13 shared-attention
 # applications in bf16 is 8.5e-2 to 1.1e-1 (last hidden state, relative
 # max-norm) from an fp32 prefill of the same weights on every path, the
@@ -2400,6 +2430,173 @@ def phase_zamba_prefill(gen, fa_rec, ca_rec, ssd_rec):
 
 
 # =============================================================== gemma3-12b
+def range_ms(fn, names=ZI_RANGES) -> dict[str, float]:
+    """Device ms of each of the program's profiler ranges ``names`` in one
+    call of ``fn``, and the call's device busy ms. A kernel counts in a
+    range when the host call that launched it lies inside the range
+    (nested ranges both count it). The extension's kernels are launched
+    outside any aten op, so the profiler links them to no range; on one
+    stream the device runs what the host launched in order, so the n-th
+    launch call is paired with the n-th device activity; where the counts
+    differ, no range is read."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ranges, calls, device = [], [], []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if not getattr(e, "is_user_annotation", False):
+                device.append((e.time_range.start, e.time_range.end))
+        elif e.name in names:
+            ranges.append((e.time_range.start, e.time_range.end, e.name))
+        elif HOST_LAUNCH.match(e.name):
+            calls.append(e.time_range.start)
+    busy = sum(end - start for start, end in device) / 1e3
+    if len(calls) != len(device):
+        return {"unpaired": [len(calls), len(device)],
+                "device_kernels_ms": busy}
+    out = dict.fromkeys(names, 0.0)
+    for call, (start, end) in zip(sorted(calls), sorted(device)):
+        for r0, r1, name in ranges:
+            if r0 <= call <= r1:
+                out[name] += (end - start) / 1e3
+    return {**out, "device_kernels_ms": busy}
+
+
+def phase_zamba2_instruct(gen, peaks) -> dict:
+    """Zyphra's zamba2 (``zamba2-7b-instruct``): its two kernels' shapes,
+    a prefill against the benchmark's fp32 reference, and the program's
+    ranges in a prefill and an eager decode step (module docstring)."""
+    from bench.reference.zamba2 import Reference as ZambaReference
+
+    cfg = get_config("zamba2-7b-instruct")
+    recs = {}
+    b, hq, hkv, s, d = ZI_ATTN
+    q, k, v = qkv(gen, b, hq, hkv, s, s, d, torch.bfloat16)
+    flops, nbytes = attn_work(b, hq, hkv, s, d)
+    for name, fn in (("flash", fa.flash_attention_cuda),
+                     ("chunked", ca.chunked_attention_cuda)):
+        out = fn(q, k, v, causal=True, scale=cfg.attn_scale)
+        ref = attention_kernel_ref(q, k, v, causal=True, scale=cfg.attn_scale)
+        err = max_err(out, ref)
+        require(err < TOL[torch.bfloat16], (name, "head dim 224", err))
+        ms = time_ms(lambda: fn(q, k, v, causal=True, scale=cfg.attn_scale))
+        bound_ms, bound_by = bound(flops, nbytes, peaks)
+        recs[name] = {"shape": list(ZI_ATTN), "max_abs_err": err, "ms": ms,
+                      "tflops": flops / ms / 1e9, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "share_of_bound": bound_ms / ms}
+    del q, k, v, out, ref
+    b, l, h, p, g, n, chunk = ZI_SSD
+    xbc = F.silu(torch.randn((b, l, h * p + 2 * g * n), generator=gen,
+                             device=DEVICE)).to(torch.bfloat16)
+    x = xbc[..., :h * p].unflatten(-1, (h, p))
+    bm = xbc[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+    cm = xbc[..., h * p + g * n:].unflatten(-1, (g, n))
+    bias = torch.log(torch.expm1(torch.linspace(0.001, 0.1, h,
+                                                device=DEVICE)))
+    dt = F.softplus(torch.randn((b, l, h), generator=gen, device=DEVICE)
+                    + bias)
+    a = -torch.arange(1, h + 1, dtype=torch.float32, device=DEVICE)
+    args = (x, dt, a, bm, cm)
+    y, st = sk.ssd_cuda(*args, chunk=chunk)
+    yr, sr = ssd_ref_sequential(*args)
+    errs = {"y": rel_max(y, yr), "state": rel_max(st, sr)}
+    require(errs["y"] < SSD_Y_REL_TOL and errs["state"] < SSD_STATE_REL_TOL,
+            f"grouped SSD kernel at zamba2-7b-instruct's shape: {errs}")
+    ms = time_ms(lambda: sk.ssd_cuda(*args, chunk=chunk))
+    full, rem = divmod(l, chunk)
+    pairs = full * chunk * (chunk + 1) // 2 + rem * (rem + 1) // 2
+    # C.B^T once a group, the masked scores times x, C times the carried
+    # state and the state's update; x, y, B and C in bf16, dt, a and the
+    # fp32 state once
+    sflops = 2 * b * pairs * n * g + 2 * b * h * pairs * p \
+        + 4 * b * h * l * n * p
+    sbytes = (2 * b * l * h * p + 2 * b * l * g * n) * 2 \
+        + 4 * (b * l * h + h + b * h * p * n)
+    bound_ms, bound_by = bound(sflops, sbytes, peaks)
+    recs["ssd"] = {"shape": list(ZI_SSD), "rel_err": errs, "ms": ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "share_of_bound": bound_ms / ms,
+                   "kernels_ms": ssd_phase_ms(args, chunk)}
+    del xbc, x, bm, cm, dt, args, y, st, yr, sr
+    log(phase="zamba2_instruct_kernels", **recs)
+
+    model = Model(cfg)
+    params = model.init(seed=SEED, device=DEVICE)
+    tokens = torch.randint(0, cfg.vocab, ZI_PREFILL, generator=gen,
+                           device=DEVICE)
+    batch = {"tokens": tokens}
+    model.prefill(params, batch, ZI_PREFILL[1])             # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        hidden = model.forward(params, batch)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    napp = len(cfg.hybrid_layer_ids)
+    want = {"ssd_scan": cfg.n_layers, "flash_attention": napp,
+            "chunked_attention": 0}
+    require(launch_counts() == want,
+            f"zamba2-7b-instruct launches {launch_counts()}, want {want}")
+    pointwise = require_pointwise("zamba2-7b-instruct forward", {
+        "rms_norm": 2 * napp, "add_rms_norm": 0, "rope_qk": napp,
+        "swiglu_gate": 0})
+    plain_model = Model(dataclasses.replace(cfg, attn_impl="xla_flash",
+                                            ssd_impl="blocked"))
+    with torch.no_grad(), plain_pointwise():
+        plain = plain_model.forward(params, batch)
+    dims = {"kind": cfg.kind, "n_layers": cfg.n_layers, "vocab": cfg.vocab,
+            "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+            "head_dim": cfg.hd, "rope_theta": cfg.rope_theta,
+            "norm_eps": cfg.norm_eps, "ssm": dataclasses.asdict(cfg.ssm),
+            "hybrid_layer_ids": list(cfg.hybrid_layer_ids),
+            "n_mem_blocks": cfg.n_mem_blocks}
+    ref = ZambaReference(dims, params)
+    want_h = ref.hidden(tokens[:ZI_REF_ROWS])
+
+    def gaps(h):
+        rows = h[:ZI_REF_ROWS].float()
+        rel = float((rows - want_h).norm() / want_h.norm())
+        logits = ref.logits(want_h)
+        pick = ref.logits(rows).argmax(-1)
+        gap = logits.max(-1).values - logits.gather(-1, pick[..., None])[..., 0]
+        return {"rel": rel, "token_gap_max": float(gap.max())}
+
+    kernel_err, plain_err = gaps(hidden), gaps(plain)
+    require(kernel_err["rel"] <= BF16_RATIO_TOL * plain_err["rel"],
+            f"zamba2-7b-instruct kernel path {kernel_err} against the plain "
+            f"path {plain_err}")
+    del hidden, plain, ref, want_h, plain_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefill_ranges = range_ms(lambda: model.prefill(
+        params, {"tokens": tokens[:1]}, ZI_PREFILL[1]))
+    lanes, slots, pos = ZI_DECODE
+    cache = model.init_cache(lanes, slots, device=DEVICE)
+    cache["pos"].fill_(pos)
+    tok = torch.randint(0, cfg.vocab, (lanes,), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    model.decode_step(params, cache, tok)                   # warm-up
+    decode = _profile(lambda: model.decode_step(params, cache, tok))
+    decode_ranges = range_ms(lambda: model.decode_step(params, cache, tok))
+    log(phase="zamba2_instruct", forward_s=forward_s, launches=want,
+        pointwise=pointwise, kernel_path=kernel_err, plain_path=plain_err,
+        prefill_ranges_ms=prefill_ranges, decode_step=decode,
+        decode_ranges_ms=decode_ranges,
+        decode_cache_gb=sum(t.numel() * t.element_size()
+                            for t in cache.values()) / 1e9,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del cache, model, params
+    free_model(cfg.name)
+    return recs
+
+
 def phase_gemma_kernels(gen, peaks, fa_rec, ca_rec, usage) -> None:
     """Both attention kernels at head dim 256: against their plain version
     on ``D256_CASES`` in fp32 (the CUDA-core bodies, 2e-5) and bf16 (the
@@ -3433,8 +3630,8 @@ def attention_detached():
     whose output autograd cannot reach q, k and v through."""
     saved = fa_ops.flash_attention_cuda
     fa_ops.flash_attention_cuda = \
-        lambda q, k, v, *, causal, window, q_offset: fa._flash_fwd(
-            q, k, v, causal, window, q_offset)
+        lambda q, k, v, *, causal, window, q_offset, scale=None: \
+        fa._flash_fwd(q, k, v, causal, window, q_offset, scale)
     try:
         yield
     finally:
@@ -4029,7 +4226,8 @@ def phase_dryrun(procs) -> None:
     log(phase="dryrun", cells=cells)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4049,6 +4247,14 @@ def main() -> int:
     added.manual_seed(SEED + 1)
 
     peaks = PEAKS[card]
+    if argv == ["zamba2_instruct"]:
+        build.extension()
+        gen.manual_seed(SEED + 5)
+        phase_zamba2_instruct(gen, peaks)
+        print(smi_name_power(), flush=True)
+        print(json.dumps({"ok": True, "phase": "zamba2_instruct"}),
+              flush=True)
+        return 0
     usage = phase_build()
     fa_rec = phase_kernel(gen, added, peaks)
     phase_pointwise(peaks)
@@ -4086,6 +4292,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(phase="free", arch="zamba2-7b", held_gb=held / 1e9,
         after_gb=torch.cuda.memory_allocated() / 1e9)
+
+    # Zyphra's zamba2, from its own generator: the phases after it see the
+    # data they saw before it was added
+    zi_gen = torch.Generator(device=DEVICE)
+    zi_gen.manual_seed(SEED + 5)
+    phase_zamba2_instruct(zi_gen, peaks)
 
     # the ssm family, whole: its decode step captured and served; prompts
     # from ``added``, so the phases after it see the data they saw before

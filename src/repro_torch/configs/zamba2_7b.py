@@ -1,6 +1,9 @@
-"""zamba2-7b: 81L hybrid — Mamba2 blocks (ssm_state=64) with a shared
-attention block (32H, d=3584) applied every 6 layers; d_ff=14336
-vocab=32000. [arXiv:2411.15242; unverified]"""
+"""zamba2-7b: the JAX package's zamba2 variant, not Zyphra's block — 81L
+hybrid, Mamba2 blocks (ssm_state=64, one B/C group, no conv bias) with one
+shared attention + SwiGLU block (32H over the 3584-wide stream, head dim
+112, with its residual) applied every 6 layers; d_ff=14336 vocab=32000.
+The published model is ``zamba2-7b-instruct``
+(``configs/zamba2_7b_instruct.py``). [arXiv:2411.15242; unverified]"""
 from repro_torch.models.config import ModelConfig, SSMConfig, register
 
 CONFIG = ModelConfig(

@@ -34,15 +34,16 @@ def needs_grad(*tensors) -> bool:
 
 
 class AttentionFunction(torch.autograd.Function):
-    """``apply(fwd, q, k, v, causal, window, q_offset)`` -> ``fwd(q, k, v,
-    causal, window, q_offset)``, the kernels' layout (B, H, S, D); the
-    backward is :func:`attention_kernel_bwd_ref`."""
+    """``apply(fwd, q, k, v, causal, window, q_offset, scale)`` -> ``fwd(q,
+    k, v, causal, window, q_offset, scale)``, the kernels' layout (B, H, S,
+    D); the backward is :func:`attention_kernel_bwd_ref`."""
 
     @staticmethod
-    def forward(ctx, fwd, q, k, v, causal, window, q_offset):
-        o = fwd(q, k, v, causal, window, q_offset)
+    def forward(ctx, fwd, q, k, v, causal, window, q_offset, scale=None):
+        o = fwd(q, k, v, causal, window, q_offset, scale)
         ctx.save_for_backward(q, k, v, o)
         ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
+        ctx.scale = scale
         return o
 
     @staticmethod
@@ -50,8 +51,8 @@ class AttentionFunction(torch.autograd.Function):
         q, k, v, o = ctx.saved_tensors
         dq, dk, dv = attention_kernel_bwd_ref(
             q, k, v, o, do, causal=ctx.causal, window=ctx.window,
-            q_offset=ctx.q_offset)
-        return None, dq, dk, dv, None, None, None
+            q_offset=ctx.q_offset, scale=ctx.scale)
+        return None, dq, dk, dv, None, None, None, None
 
 
 class SSDFunction(torch.autograd.Function):

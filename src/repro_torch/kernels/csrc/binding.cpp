@@ -26,7 +26,7 @@ cudaError_t ssd_scan_fwd_launch(
     const void* x, const float* dt, const float* a, const void* bm,
     const void* cm, void* y, float* state, const float* init_state,
     float* keys, float* cstate, void* prev,
-    int dtype, int batch, int L, int H, int P, int N, int Q,
+    int dtype, int batch, int L, int H, int P, int N, int G, int Q,
     const int64_t* x_strides, const int64_t* dt_strides,
     const int64_t* b_strides, const int64_t* c_strides,
     const int64_t* y_strides, cudaStream_t stream);
@@ -97,7 +97,7 @@ float* f32_or_null(const torch::Tensor& t) {
   return t.numel() ? t.data_ptr<float>() : nullptr;
 }
 
-// x/y (B, L, H, P), dt (B, L, H), a (H,), B/C (B, L, N), state and
+// x/y (B, L, H, P), dt (B, L, H), a (H,), B/C (B, L, G, N), state and
 // init_state (B, H, P, N) contiguous, init_state empty for a zero start;
 // last dims contiguous. keys (3, B, H, L) fp32, cstate (B, nc, H, P, N)
 // fp32 and prev (2, B, nc, H, P, N) bf16 are the bf16 body's scratch,
@@ -113,15 +113,16 @@ void ssd_scan_fwd(const torch::Tensor& x, const torch::Tensor& dt,
   const std::array<int64_t, 3> xs{x.stride(0), x.stride(1), x.stride(2)},
       dts{dt.stride(0), dt.stride(1), dt.stride(2)},
       ys{y.stride(0), y.stride(1), y.stride(2)};
-  const std::array<int64_t, 2> bs{bm.stride(0), bm.stride(1)},
-      cs{cm.stride(0), cm.stride(1)};
+  const std::array<int64_t, 3> bs{bm.stride(0), bm.stride(1), bm.stride(2)},
+      cs{cm.stride(0), cm.stride(1), cm.stride(2)};
   const int dtype = x.scalar_type() == torch::kBFloat16 ? 1 : 0;
   const cudaError_t err = ssd_scan_fwd_launch(
       x.data_ptr(), dt.data_ptr<float>(), a.data_ptr<float>(), bm.data_ptr(),
       cm.data_ptr(), y.data_ptr(), state.data_ptr<float>(),
       f32_or_null(init_state), f32_or_null(keys), f32_or_null(cstate),
       prev.numel() ? prev.data_ptr() : nullptr, dtype,
-      x.size(0), x.size(1), x.size(2), x.size(3), bm.size(2), chunk,
+      x.size(0), x.size(1), x.size(2), x.size(3), bm.size(3), bm.size(2),
+      chunk,
       xs.data(), dts.data(), bs.data(), cs.data(), ys.data(),
       c10::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == cudaSuccess, "ssd_scan kernel launch failed: ",

@@ -37,7 +37,10 @@
 // P V). D = 256 (gemma3) spans
 // four atoms: its tiles take 197.6 KB of shared memory a block, and a
 // thread holds the 64 x 256 fp32 O fragment of its warpgroup in 128
-// registers (P V is one m64n256k16, the widest N wgmma takes).
+// registers (P V is one m64n256k16, the widest N wgmma takes). D = 224
+// (Zyphra's zamba2, 448 bytes a row) pads to D = 256's four atoms and
+// shared memory, runs 14 k-steps of Q K^T and one m64n224k16 for P V, and
+// holds 112 O registers a thread.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -55,7 +58,7 @@ constexpr int TPR = 4;               // threads per query row
 constexpr int NTHREADS = BQ * TPR;   // 128
 constexpr float NEG = -1e30f;
 
-// kv rows per shared-memory tile: 32, or 16 at D = 256, so that the fp32 K
+// kv rows per shared-memory tile: 32, or 16 at D = 224 and 256, so that the fp32 K
 // and V tiles (2 * BK * D * 4 bytes: 32 KB either way) stay within the
 // 48 KB of static shared memory.
 template <int D>
@@ -99,6 +102,7 @@ inline Params make_params(const void* q, const void* k, const void* v,
     case 80: KERNEL<T, 80><<<grid, attn::NTHREADS, 0, stream>>>(p); break;  \
     case 112: KERNEL<T, 112><<<grid, attn::NTHREADS, 0, stream>>>(p); break; \
     case 128: KERNEL<T, 128><<<grid, attn::NTHREADS, 0, stream>>>(p); break; \
+    case 224: KERNEL<T, 224><<<grid, attn::NTHREADS, 0, stream>>>(p); break; \
     case 256: KERNEL<T, 256><<<grid, attn::NTHREADS, 0, stream>>>(p); break; \
     default: return cudaErrorInvalidValue;                                  \
   }
@@ -116,7 +120,7 @@ constexpr int NTHREADS = 128 * NWG;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Head dims are stored padded to whole 64-column swizzle atoms (32 -> 64,
-// 80 and 112 -> 128). The padding is zeroed and never read: the k-steps of
+// 80 and 112 -> 128, 224 -> 256). The padding is zeroed and never read: the k-steps of
 // S = Q K^T stop at D, and P V's N is D.
 template <int D>
 __host__ __device__ constexpr int padded() { return (D + 63) / 64 * 64; }
@@ -376,6 +380,7 @@ cudaError_t launch(void (*kernel)(Params), const Params& p, int batch, int hq,
     case 80: return attn::tc::launch<80>(KERNEL<80>, p, batch, hq, stream);    \
     case 112: return attn::tc::launch<112>(KERNEL<112>, p, batch, hq, stream); \
     case 128: return attn::tc::launch<128>(KERNEL<128>, p, batch, hq, stream); \
+    case 224: return attn::tc::launch<224>(KERNEL<224>, p, batch, hq, stream); \
     case 256: return attn::tc::launch<256>(KERNEL<256>, p, batch, hq, stream); \
     default: return cudaErrorInvalidValue;                                     \
   }

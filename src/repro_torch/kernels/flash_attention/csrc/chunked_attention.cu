@@ -31,7 +31,7 @@
 // bounds compute the same function).
 //
 // Layout: the flash kernel's (strided (B, S, H, D) reads, masks instead of
-// padding). Head dims 32, 64, 80, 112, 128 and 256.
+// padding). Head dims 32, 64, 80, 112, 128, 224 and 256.
 #include "attention_common.cuh"
 
 namespace {

@@ -31,8 +31,9 @@
 // so the caller never materialises a transpose; the ragged tail of S is
 // handled by load/store masks, not padding. GQA: the kv head is
 // q_head / group, K/V are never repeated. Head dims 32, 64, 80 (stablelm-3b),
-// 112 (zamba2's shared attention), 128 and 256 (gemma3; the fp32 body's K/V tiles have
-// 16 rows there, attention_common.cuh).
+// 112 (the zamba2 variant's shared attention), 128, 224 (Zyphra's zamba2)
+// and 256 (gemma3; the fp32 body's K/V tiles have 16 rows at 224 and 256,
+// attention_common.cuh).
 #include "attention_common.cuh"
 
 namespace {

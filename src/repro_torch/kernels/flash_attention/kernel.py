@@ -19,10 +19,11 @@ from repro_torch.kernels import build
 from repro_torch.kernels.autograd import AttentionFunction, needs_grad
 from repro_torch.kernels.flash_attention.ref import attention_kernel_ref
 
-# the head dims both kernels instantiate (stablelm-3b 80, zamba2's shared
-# attention 112, gemma3 256); the smoke configs' 16 runs only on the CPU,
-# through the plain version, and raises here on CUDA
-HEAD_DIMS = (32, 64, 80, 112, 128, 256)
+# the head dims both kernels instantiate (stablelm-3b 80, the zamba2
+# variant's shared attention 112, Zyphra's zamba2 224, gemma3 256); the
+# smoke configs' 16 runs only on the CPU, through the plain version, and
+# raises here on CUDA
+HEAD_DIMS = (32, 64, 80, 112, 128, 224, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_GRID_YZ = 65535
 
@@ -61,7 +62,8 @@ def check_args(q, k, v, window, q_offset=0):
         raise ValueError(f"query offset {q_offset} out of range")
 
 
-def flash_attention_cuda(q, k, v, *, causal=True, window=0, q_offset=0):
+def flash_attention_cuda(q, k, v, *, causal=True, window=0, q_offset=0,
+                         scale=None):
     """q (B, Hq, Sq, D); k/v (B, Hkv, Skv, D) -> (B, Hq, Sq, D).
 
     Any strides with the head dim contiguous: a (B, S, H, D) tensor's
@@ -74,15 +76,16 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, q_offset=0):
     queries against the gathered K/V)."""
     if needs_grad(q, k, v):
         return AttentionFunction.apply(_flash_fwd, q, k, v, bool(causal),
-                                       int(window), int(q_offset))
-    return _flash_fwd(q, k, v, causal, window, q_offset)
+                                       int(window), int(q_offset), scale)
+    return _flash_fwd(q, k, v, causal, window, q_offset, scale)
 
 
-def _flash_fwd(q, k, v, causal, window, q_offset=0):
-    """The forward: the plain version for CPU tensors, else the kernel."""
+def _flash_fwd(q, k, v, causal, window, q_offset=0, scale=None):
+    """The forward: the plain version for CPU tensors, else the kernel;
+    the scores scaled by ``scale`` (default 1 / sqrt(D))."""
     if build.all_cpu(q, k, v):
         return attention_kernel_ref(q, k, v, causal=causal, window=window,
-                                    q_offset=q_offset)
+                                    q_offset=q_offset, scale=scale)
     build.check_cuda("flash_attention_cuda", q, k, v)
     check_args(q, k, v, window, q_offset)
     global launches
@@ -90,7 +93,9 @@ def _flash_fwd(q, k, v, causal, window, q_offset=0):
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     ot = out.transpose(1, 2)
     build.extension().flash_attention_fwd(q, k, v, ot, bool(causal),
-                                          int(window), 1.0 / math.sqrt(d),
+                                          int(window),
+                                          1.0 / math.sqrt(d) if scale is None
+                                          else float(scale),
                                           int(q_offset))
     launches += 1
     return ot

@@ -9,19 +9,22 @@ from repro_torch.kernels.flash_attention.chunked import chunked_attention_cuda
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
+def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                    scale=None):
     """q (B, Sq, Hq, D); k/v (B, Skv, Hkv, D) -> (B, Sq, Hq, D), query row
-    r at position r + ``q_offset``."""
+    r at position r + ``q_offset``, the scores scaled by ``scale``
+    (default 1 / sqrt(D))."""
     o = flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2), causal=causal, window=window,
-                             q_offset=q_offset)
+                             q_offset=q_offset, scale=scale)
     return o.transpose(1, 2)
 
 
-def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0):
+def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                      scale=None):
     """The two-pass kernel, same layout and function as
     :func:`flash_attention`."""
     o = chunked_attention_cuda(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), causal=causal,
-                               window=window, q_offset=q_offset)
+                               window=window, q_offset=q_offset, scale=scale)
     return o.transpose(1, 2)

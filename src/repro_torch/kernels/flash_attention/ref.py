@@ -21,16 +21,19 @@ def _visible(sq, skv, causal, window, device, q_offset=0):
     return mask
 
 
-def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
+def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0,
+                  scale=None):
     """q (B, Hq, Sq, D); k/v (B, Hkv, Skv, D) -> (B, Hq, Sq, D), query row
-    r at position r + ``q_offset`` (a sequence shard's start). A row that
-    sees no key gets the mean of V, as the reference's ``attention_ref``."""
+    r at position r + ``q_offset`` (a sequence shard's start), the scores
+    scaled by ``scale`` (default 1 / sqrt(D)). A row that sees no key gets
+    the mean of V, as the reference's ``attention_ref``."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv
     k = k.repeat_interleave(group, dim=1)
     v = v.repeat_interleave(group, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    s = s / math.sqrt(d) if scale is None else s * scale
     mask = _visible(sq, skv, causal, window, q.device, q_offset)
     s = s.masked_fill(~mask, -1e30)
     p = torch.softmax(s, dim=-1)
@@ -38,13 +41,14 @@ def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
     return o.to(q.dtype)
 
 
-def attention_kernel_ref(q, k, v, *, causal=True, window=0, q_offset=0):
+def attention_kernel_ref(q, k, v, *, causal=True, window=0, q_offset=0,
+                         scale=None):
     """The kernels' function: ``attention_ref`` with every row that sees no
     key under ``causal`` and ``window`` set to 0, as the Pallas kernels
     (``flash_attention_tpu``, ``chunked_attention_tpu``) and the CUDA
     bodies give it."""
     out = attention_ref(q, k, v, causal=causal, window=window,
-                        q_offset=q_offset)
+                        q_offset=q_offset, scale=scale)
     empty = ~_visible(q.shape[2], k.shape[2], causal, window, q.device,
                       q_offset).any(-1)
     return out.masked_fill(empty[:, None], 0)
@@ -61,7 +65,7 @@ def _bmm_f32(a, b):
 
 
 def attention_kernel_bwd_ref(q, k, v, o, do, *, causal=True, window=0,
-                             q_offset=0, q_tile=512):
+                             q_offset=0, q_tile=512, scale=None):
     """The gradient of :func:`attention_kernel_ref` with respect to q, k
     and v: (dq, dk, dv) in the inputs' dtypes, computed from the saved q,
     k, v, the forward's output ``o`` and the output's gradient ``do``, all
@@ -72,14 +76,15 @@ def attention_kernel_bwd_ref(q, k, v, o, do, *, causal=True, window=0,
     is ever whole: each tile reads only the keys its rows can reach (the
     causal top, the window's bottom), recomputes its scores and softmax in
     fp32, then with D = rowsum(dO * O) and dS = P * (dO V^T - D) adds
-    dV += P^T dO, dK += dS^T Q / sqrt(d) and writes dQ = dS K / sqrt(d).
+    dV += P^T dO, dK += dS^T Q s and writes dQ = dS K s, the scores'
+    scale s = ``scale`` (default 1 / sqrt(d)).
     The q heads of a GQA group are laid out as extra rows of their kv
     head's products, so dK and dV sum over the group. A row that sees no
     key has P = 0 (the kernels' zero output) and a zero gradient."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = hq // hkv
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     dev = q.device
     delta = (do.float() * o.float()).sum(-1).reshape(b, hkv, g, sq)
     dq = torch.zeros((b, hkv, g, sq, d), dtype=torch.float32, device=dev)

@@ -2,7 +2,9 @@
 //
 // Replaces the Pallas TPU kernel ssd_tpu (src/repro/kernels/ssd_scan/
 // kernel.py). For x (B, L, H, P), dt (B, L, H) (post-softplus), a (H,) < 0
-// and B/C (B, L, N), per chunk of Q tokens (Dao & Gu 2024):
+// and B/C (B, L, G, N) in G groups (head h reads group h / (H / G); G = 1
+// is one B and C for every head, Zyphra's zamba2 has G = 2), per chunk of Q
+// tokens (Dao & Gu 2024):
 //   seg_i = cumsum_{k<=i} dt_k a                          (inclusive)
 //   y_i   = sum_{j<=i} (C_i . B_j) e^{seg_i - seg_j} dt_j x_j
 //           + e^{seg_i} C_i . S_prev
@@ -123,8 +125,9 @@ struct Params {
   const float* init;                 // (B, H, P, N) contiguous, or null: 0
   int64_t x_sb, x_sl, x_sh;          // element strides; last dim contiguous
   int64_t dt_sb, dt_sl, dt_sh;
-  int64_t b_sb, b_sl;
-  int64_t c_sb, c_sl;
+  int64_t b_sb, b_sl, b_sg;           // B/C (batch, seq, group) strides
+  int64_t c_sb, c_sl, c_sg;
+  int hpg;                           // heads per group: head h reads group h / hpg
   int64_t y_sb, y_sl, y_sh;
   int L, H, P, N, Q;
   // the bf16 body's scratch (null for fp32), all written before read:
@@ -183,8 +186,8 @@ __global__ void __launch_bounds__(NT) ssd_fwd(const Params p) {
 
   const T* xg = static_cast<const T*>(p.x) + b * p.x_sb + h * p.x_sh;
   const float* dtg = p.dt + b * p.dt_sb + h * p.dt_sh;
-  const T* bg = static_cast<const T*>(p.bm) + b * p.b_sb;
-  const T* cg = static_cast<const T*>(p.cm) + b * p.c_sb;
+  const T* bg = static_cast<const T*>(p.bm) + b * p.b_sb + (h / p.hpg) * p.b_sg;
+  const T* cg = static_cast<const T*>(p.cm) + b * p.c_sb + (h / p.hpg) * p.c_sg;
   T* yg = static_cast<T*>(p.y) + b * p.y_sb + h * p.y_sh;
 
   const float* ig = p.init ? p.init + ((int64_t)b * p.H + h) * P * N : nullptr;
@@ -536,7 +539,7 @@ __global__ void __launch_bounds__(NTHREADS) ssd_states(const Params p) {
   const int end = ch.base + ch.qn;
   const int64_t bh = (int64_t)b * p.H + h;
   const bf16* xg = static_cast<const bf16*>(p.x) + b * p.x_sb + h * p.x_sh;
-  const bf16* bg = static_cast<const bf16*>(p.bm) + b * p.b_sb;
+  const bf16* bg = static_cast<const bf16*>(p.bm) + b * p.b_sb + (h / p.hpg) * p.b_sg;
   const float* segg = p.seg + bh * p.L + ch.base;
   const float* cwg = p.cw + bh * p.L + ch.base;
   const int nt = (ch.qn + TILE - 1) / TILE;
@@ -695,8 +698,8 @@ __global__ void __launch_bounds__(NTHREADS) ssd_out(const Params p) {
   if (i0 >= ch.qn) return;           // past the ragged last chunk's end
   const int64_t bh = (int64_t)b * p.H + h;
   const bf16* xg = static_cast<const bf16*>(p.x) + b * p.x_sb + h * p.x_sh;
-  const bf16* bg = static_cast<const bf16*>(p.bm) + b * p.b_sb;
-  const bf16* cg = static_cast<const bf16*>(p.cm) + b * p.c_sb;
+  const bf16* bg = static_cast<const bf16*>(p.bm) + b * p.b_sb + (h / p.hpg) * p.b_sg;
+  const bf16* cg = static_cast<const bf16*>(p.cm) + b * p.c_sb + (h / p.hpg) * p.c_sg;
   const int64_t so = (((int64_t)b * p.nc + c) * p.H + h) * p.P * p.N;
   const float* segg = p.seg + bh * p.L + ch.base;
   const float* dtg = p.dtt + bh * p.L + ch.base;
@@ -856,7 +859,8 @@ cudaError_t launch(Params p, int batch, cudaStream_t stream) {
   const void* ptrs[5] = {p.x, p.bm, p.cm, p.prev_hi, p.prev_lo};
   bool vec = p.P % 8 == 0 && p.N % 8 == 0;
   for (const void* ptr : ptrs) vec = vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
-  const int64_t strides[7] = {p.x_sb, p.x_sl, p.x_sh, p.b_sb, p.b_sl, p.c_sb, p.c_sl};
+  const int64_t strides[9] = {p.x_sb, p.x_sl, p.x_sh, p.b_sb, p.b_sl, p.b_sg,
+                              p.c_sb, p.c_sl, p.c_sg};
   for (int64_t s : strides) vec = vec && s % 8 == 0;
   p.vec = vec;
   ssd_seg<<<dim3((p.H + SEG_H - 1) / SEG_H, p.nc, batch), SEG_THREADS, 0, stream>>>(p);
@@ -872,8 +876,8 @@ cudaError_t launch(Params p, int batch, cudaStream_t stream) {
 // tensor-core phases) for x, B, C and y; dt and a are float32, the state
 // is written float32 (B, H, P, N) contiguous, starting from init_state
 // (the same layout) or, where it is null, from 0. Strides are in elements:
-// x/y (batch, seq, head), dt (batch, seq, head), B/C (batch, seq); the last
-// dim of each is contiguous. keys (3, B, H, L) fp32 (seg, dt, cw per
+// x/y (batch, seq, head), dt (batch, seq, head), B/C (batch, seq, group);
+// the last dim of each is contiguous; G groups divide the H heads. keys (3, B, H, L) fp32 (seg, dt, cw per
 // position), cstate (B, nc, H, P, N) fp32 and prev (2, B, nc, H, P, N)
 // bf16 (the hi and lo parts of the state before each chunk) are the bf16
 // body's scratch, nc = ceil(L / Q); null for fp32. Needs P % 4 == 0, P <= 64,
@@ -883,19 +887,22 @@ cudaError_t ssd_scan_fwd_launch(
     const void* x, const float* dt, const float* a, const void* bm,
     const void* cm, void* y, float* state, const float* init_state,
     float* keys, float* cstate, void* prev,
-    int dtype, int batch, int L, int H, int P, int N, int Q,
+    int dtype, int batch, int L, int H, int P, int N, int G, int Q,
     const int64_t* x_strides, const int64_t* dt_strides,
     const int64_t* b_strides, const int64_t* c_strides,
     const int64_t* y_strides, cudaStream_t stream) {
-  if (P % 4 || P > MAX_P || N % 4 || N > MAX_N || Q < 1 || L < 1)
+  if (P % 4 || P > MAX_P || N % 4 || N > MAX_N || Q < 1 || L < 1 || G < 1 ||
+      H % G)
     return cudaErrorInvalidValue;
   Params p;
   p.x = x; p.dt = dt; p.a = a; p.bm = bm; p.cm = cm; p.y = y; p.state = state;
   p.init = init_state;
   p.x_sb = x_strides[0]; p.x_sl = x_strides[1]; p.x_sh = x_strides[2];
   p.dt_sb = dt_strides[0]; p.dt_sl = dt_strides[1]; p.dt_sh = dt_strides[2];
-  p.b_sb = b_strides[0]; p.b_sl = b_strides[1];
-  p.c_sb = c_strides[0]; p.c_sl = c_strides[1];
+  // one group: its (size-1) group stride is never used
+  p.b_sb = b_strides[0]; p.b_sl = b_strides[1]; p.b_sg = G > 1 ? b_strides[2] : 0;
+  p.c_sb = c_strides[0]; p.c_sl = c_strides[1]; p.c_sg = G > 1 ? c_strides[2] : 0;
+  p.hpg = H / G;
   p.y_sb = y_strides[0]; p.y_sl = y_strides[1]; p.y_sh = y_strides[2];
   p.L = L; p.H = H; p.P = P; p.N = N; p.Q = Q;
   const int64_t bhl = (int64_t)batch * H * L;

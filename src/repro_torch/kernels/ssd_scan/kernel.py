@@ -43,16 +43,18 @@ def check_args(x, dt, a, bmat, cmat, chunk, init_state=None):
     if dt.dtype != torch.float32 or a.dtype != torch.float32:
         raise ValueError(f"dt {dt.dtype} and a {a.dtype} must be float32")
     if x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 \
-            or bmat.dim() != 3 or bmat.shape != cmat.shape:
+            or bmat.dim() not in (3, 4) or bmat.shape != cmat.shape:
         raise ValueError("want x (B, L, H, P), dt (B, L, H), a (H,), "
-                         "B and C (B, L, N)")
+                         "B and C (B, L, N) or (B, L, G, N)")
     b, l, h, p = x.shape
-    n = bmat.shape[2]
+    n = bmat.shape[-1]
+    g = bmat.shape[2] if bmat.dim() == 4 else 1
     if tuple(dt.shape) != (b, l, h) or tuple(a.shape) != (h,) \
-            or tuple(bmat.shape[:2]) != (b, l) or l < 1:
+            or tuple(bmat.shape[:2]) != (b, l) or l < 1 or h % g:
         raise ValueError(f"shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
                          f"a {tuple(a.shape)}, B {tuple(bmat.shape)} "
-                         "disagree, or L is 0")
+                         "disagree, L is 0, or the groups do not divide "
+                         "the heads")
     if p % 4 or p > MAX_P or n % 4 or n > MAX_N:
         raise ValueError(f"head dim {p} and state dim {n}: the kernel takes "
                          f"multiples of 4 up to {MAX_P} and {MAX_N}")
@@ -73,7 +75,8 @@ def check_args(x, dt, a, bmat, cmat, chunk, init_state=None):
 
 def ssd_cuda(x, dt, a, bmat, cmat, *, chunk=128, init_state=None):
     """x (B, L, H, P); dt (B, L, H) fp32 [post-softplus]; a (H,) fp32
-    [negative]; bmat/cmat (B, L, N); the scan continues from
+    [negative]; bmat/cmat (B, L, N), or (B, L, G, N) in G groups (head h
+    reads group h // (H / G)); the scan continues from
     ``init_state`` (B, H, P, N) fp32, or starts from 0 where it is None
     (``ssd_tpu`` always starts from 0). Returns (y (B, L, H, P) in x's
     dtype, state (B, H, P, N) fp32), as ``ssd_tpu``."""
@@ -93,7 +96,9 @@ def _ssd_fwd(x, dt, a, bmat, cmat, chunk, init_state):
     check_args(x, dt, a, bmat, cmat, chunk, init_state)
     global launches
     b, l, h, p = x.shape
-    n = bmat.shape[2]
+    n = bmat.shape[-1]
+    if bmat.dim() == 3:              # one group
+        bmat, cmat = bmat.unsqueeze(2), cmat.unsqueeze(2)
     q = min(int(chunk), l)
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)

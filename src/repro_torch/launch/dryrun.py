@@ -166,7 +166,7 @@ def _abstract_kernels(census: Census):
     saved = (fa_kernel._flash_fwd, fa_chunked._chunked_fwd,
              ssd_kernel._ssd_fwd)
 
-    def attention(q, k, v, causal, window, q_offset=0):
+    def attention(q, k, v, causal, window, q_offset=0, scale=None):
         b, hq, sq, d = q.shape
         pairs = _attention_pairs(sq, k.shape[2], causal, window, q_offset)
         census.kernel_flops += 4 * b * hq * d * pairs
@@ -175,7 +175,7 @@ def _abstract_kernels(census: Census):
 
     def ssd(x, dt, a, bmat, cmat, chunk, init_state):
         b, l, h, p = x.shape
-        n = bmat.shape[2]
+        n = bmat.shape[-1]
         q = min(int(chunk), l)
         full, rem = divmod(l, q)
         pairs = full * q * (q + 1) // 2 + rem * (rem + 1) // 2

@@ -70,11 +70,11 @@ def _mask(q_pos, kv_pos, causal: bool, window: int):
 
 # ------------------------------------------------------------------- naive
 def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0,
-                    kv_offset=0):
+                    kv_offset=0, scale=None):
     b, sq, hq, d = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
     qg = _group(q, n_kv)
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     s = torch.einsum("bhgqd,bkhd->bhgqk", qg.float(), k.float()) * scale
     q_pos = q_offset + torch.arange(sq, device=q.device)
     kv_pos = kv_offset + torch.arange(skv, device=q.device)
@@ -87,14 +87,15 @@ def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0,
 
 # --------------------------------------------------------------- xla flash
 def flash_attention_xla(q, k, v, *, causal=True, window=0, q_offset=0,
-                        kv_offset=0, kv_chunk=512, kv_len=None):
+                        kv_offset=0, kv_chunk=512, kv_len=None, scale=None):
     """Memory-efficient attention: a loop over KV chunks with an fp32
-    running softmax. ``kv_len``: optional count of valid kv positions."""
+    running softmax. ``kv_len``: optional count of valid kv positions;
+    ``scale``: the scores' (default 1 / sqrt(D))."""
     b, sq, hq, d = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
     kv_chunk = min(kv_chunk, skv)
     qg = _group(q, n_kv).float()  # (B, Hkv, G, Sq, D)
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     q_pos = q_offset + torch.arange(sq, device=q.device)
     m = torch.full(qg.shape[:-1], _NEG, device=q.device)
     l = torch.zeros(qg.shape[:-1], device=q.device)
@@ -139,53 +140,57 @@ def window_attention_xla(q, k, v, *, window, q_offset=0, q_chunk=0):
     return torch.cat(outs, dim=1)
 
 
-def _local_attention(q, k, v, causal, window, impl, q_offset):
+def _local_attention(q, k, v, causal, window, impl, q_offset, scale=None):
     """Prefill attention on local tensors, dispatched on ``impl``
-    (``ModelConfig.attn_impl``), the queries at ``q_offset`` onwards. The
-    CUDA kernels take the window as a mask; the plain path slices the
-    keys as the reference's ``local`` does."""
+    (``ModelConfig.attn_impl``), the queries at ``q_offset`` onwards, the
+    scores scaled by ``scale`` (default 1 / sqrt(D)). The CUDA kernels take
+    the window as a mask; the plain path slices the keys as the
+    reference's ``local`` does (a window with its default scale only)."""
     if impl == "kernel":
         return fa_ops.flash_attention(q, k, v, causal=causal, window=window,
-                                      q_offset=q_offset)
+                                      q_offset=q_offset, scale=scale)
     if impl == "chunked":
         return fa_ops.chunked_attention(q, k, v, causal=causal,
-                                        window=window, q_offset=q_offset)
+                                        window=window, q_offset=q_offset,
+                                        scale=scale)
     if impl == "xla_flash":
-        if window > 0 and causal:
+        if window > 0 and causal and scale is None:
             return window_attention_xla(q, k, v, window=window,
                                         q_offset=q_offset)
         return flash_attention_xla(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset)
+                                   q_offset=q_offset, scale=scale)
     if impl == "naive":
         return naive_attention(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset)
+                               q_offset=q_offset, scale=scale)
     raise ValueError(f"unknown attn_impl {impl!r}; expected one of {IMPLS}")
 
 
-def context_attention(q, k, v, *, causal=True, window=0, impl="kernel"):
+def context_attention(q, k, v, *, causal=True, window=0, impl="kernel",
+                      scale=None):
     """Prefill attention. Without a mesh, one local call. Under a mesh:
     all-gather-KV context parallelism, each sequence shard at its absolute
     offset; or, when the query sequence does not divide the 'seq' axes,
     the local call on each rank's batch shard, the sequences whole (the
-    kernels take no DTensor). While a profiler records, the call is one
-    ``attention`` range, whatever ``impl`` runs it."""
+    kernels take no DTensor). ``scale``: the scores' (default 1 / sqrt(D)).
+    While a profiler records, the call is one ``attention`` range, whatever
+    ``impl`` runs it."""
     with profiler_range("attention"):
-        return _context_attention(q, k, v, causal, window, impl)
+        return _context_attention(q, k, v, causal, window, impl, scale)
 
 
-def _context_attention(q, k, v, causal, window, impl):
+def _context_attention(q, k, v, causal, window, impl, scale=None):
     ctx = rules.current_ctx()
     mesh = ctx.mesh
     sq = q.shape[1]
     axes = ctx.mesh_axes("seq")
     if not rules.is_device_mesh(mesh):
-        return _local_attention(q, k, v, causal, window, impl, 0)
+        return _local_attention(q, k, v, causal, window, impl, 0, scale)
     bspec = ctx.spec(("batch",), (q.shape[0],))[0]
     if not axes or sq % ctx.axes_size("seq") != 0:
         spec = (bspec, None, None, None)
         return rules.shard_map(
             lambda qq, kk, vv: _local_attention(qq, kk, vv, causal, window,
-                                                impl, 0),
+                                                impl, 0, scale),
             mesh=mesh, in_specs=(spec,) * 3, out_specs=spec)(q, k, v)
     axis = axes[0]
     kv_sharded = k.shape[1] % rules.mesh_shape(mesh)[axis] == 0
@@ -197,7 +202,8 @@ def _context_attention(q, k, v, causal, window, impl):
             kk = rules.all_gather(kk, mesh, axis, 1)
             vv = rules.all_gather(vv, mesh, axis, 1)
         q_off = rules.axis_index(mesh, axis) * qq.shape[1]
-        return _local_attention(qq, kk, vv, causal, window, impl, q_off)
+        return _local_attention(qq, kk, vv, causal, window, impl, q_off,
+                                scale)
 
     return rules.shard_map(f, mesh=mesh, in_specs=(qspec, kvspec, kvspec),
                            out_specs=qspec)(q, k, v)
@@ -272,7 +278,7 @@ def pv_blockdiag(p, v_cache):
 
 
 def decode_attention_local(q, k_cache, v_cache, *, pos, window=0,
-                           kv_offset=0):
+                           kv_offset=0, scale=None):
     """Single-token attention over a cache: q (B, Hq, D), cache
     (B, S, Hkv, D), ``pos`` = current absolute position — an int, or a
     (B,) tensor of per-slot positions (continuous batching: each lane
@@ -286,10 +292,11 @@ def decode_attention_local(q, k_cache, v_cache, *, pos, window=0,
     the einsums. An int ``pos`` (a cross layer's S - 1) enters the mask as
     a kernel argument, and the masked entries are filled with scalars
     (``masked_fill``), so no tensor is made from host data and the step
-    can be captured as a CUDA graph."""
+    can be captured as a CUDA graph. ``scale``: the scores' (default
+    1 / sqrt(D))."""
     b, hq, d = q.shape
     skv, n_kv = k_cache.shape[1], k_cache.shape[2]
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     fused = fused_f32(q, k_cache, v_cache)
     if fused:
         s = scores_blockdiag(q, k_cache) * scale
@@ -313,7 +320,7 @@ def decode_attention_local(q, k_cache, v_cache, *, pos, window=0,
     return o / torch.clamp(l, min=1e-30)[..., None], m, l
 
 
-def decode_attention(q, k_cache, v_cache, *, pos, window=0):
+def decode_attention(q, k_cache, v_cache, *, pos, window=0, scale=None):
     """Decode attention, q: (B, Hq, D) -> (B, Hq, D). Without a mesh, or
     when the cache's length does not divide the 'kv_seq' axes, one local
     call. Under a mesh, flash-decoding: the cache sequence-sharded over
@@ -327,7 +334,7 @@ def decode_attention(q, k_cache, v_cache, *, pos, window=0):
     axes = ctx.mesh_axes("kv_seq")
     if mesh is None or not axes or skv % ctx.axes_size("kv_seq") != 0:
         o, _, _ = decode_attention_local(q, k_cache, v_cache, pos=pos,
-                                         window=window)
+                                         window=window, scale=scale)
         return o.reshape(q.shape).to(q.dtype)
     bspec = ctx.spec(("batch",), (b,))[0]
     used = set(rules.spec_axes(bspec))
@@ -340,7 +347,7 @@ def decode_attention(q, k_cache, v_cache, *, pos, window=0):
     def f(qq, kk, vv, pp):
         base = rules.axis_index(mesh, axes) * kk.shape[1]
         o, m, l = decode_attention_local(qq, kk, vv, pos=pp, window=window,
-                                         kv_offset=base)
+                                         kv_offset=base, scale=scale)
         gm = rules.pmax(m, mesh, axes)
         wl = torch.exp(m - gm) * l
         num = rules.psum(o * wl[..., None], mesh, axes)

@@ -12,6 +12,11 @@ two deliberate differences:
    ``"kernel"`` (default) runs prefill's SSD scan in the hand-written CUDA
    kernel, ``"blocked"`` in the plain-torch block decomposition
    (``models/ssm.py:ssd_ref``), which is what the reference's models run.
+
+Beyond the reference, the hybrid family takes Zyphra's published layout
+(``hybrid_layer_ids`` non-empty; zamba2-7b-instruct): the fields below
+that field, and ``SSMConfig.n_groups`` / ``conv_bias``. Their defaults keep
+the reference's variant.
 """
 from __future__ import annotations
 
@@ -37,6 +42,11 @@ class SSMConfig:
     expand: int = 2                   # d_inner = expand * d_model
     conv_width: int = 4
     chunk: int = 256
+    # B and C come in ``n_groups`` groups of d_state each; head h reads
+    # group h // (n_heads / n_groups). The gated norm runs over each group
+    # of d_inner / n_groups channels.
+    n_groups: int = 1
+    conv_bias: bool = False           # a bias after the depthwise conv
 
     def d_inner(self, d_model: int) -> int:
         return self.expand * d_model
@@ -65,6 +75,19 @@ class ModelConfig:
     # Hybrid (zamba2): mamba blocks with a shared attention block applied
     # every `shared_attn_every` layers (weights shared across applications).
     shared_attn_every: int = 0
+    # Hybrid, Zyphra's published layout (set by a non-empty
+    # `hybrid_layer_ids`): every layer is a Mamba2 layer; before each layer
+    # listed here one of `n_mem_blocks` shared blocks (application j takes
+    # block j mod n_mem_blocks) attends over concat(x, token embedding),
+    # `attn_in` wide with `head_dim`-wide heads and softmax scale
+    # (head_dim / 2)^-1/2, then runs a GeGLU MLP whose gate and up products
+    # gain application j's rank-`adapter_rank` adapter; its output, through
+    # application j's own d x d linear, is added to the Mamba2 layer's input
+    # (not to the residual stream).
+    hybrid_layer_ids: tuple[int, ...] = ()
+    n_mem_blocks: int = 1
+    attn_in: int = 0                  # 0 -> d_model
+    adapter_rank: int = 0
     # Encoder-decoder (whisper): number of encoder layers; frontend stub emits
     # `enc_len` precomputed frame embeddings.
     n_enc_layers: int = 0
@@ -92,6 +115,23 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def zyphra(self) -> bool:
+        """Whether this is the hybrid family's published (Zyphra) layout."""
+        return self.kind == "hybrid" and bool(self.hybrid_layer_ids)
+
+    @property
+    def attn_width(self) -> int:
+        """Width of an attention block's input: ``attn_in`` or d_model."""
+        return self.attn_in or self.d_model
+
+    @property
+    def attn_scale(self) -> float | None:
+        """Softmax scale of the attention scores where it is not the
+        attention's default hd^-1/2: (hd / 2)^-1/2 in Zyphra's shared
+        blocks, None elsewhere."""
+        return (self.hd / 2) ** -0.5 if self.zyphra else None
 
     @property
     def padded_vocab(self) -> int:
@@ -128,15 +168,27 @@ class ModelConfig:
             s = self.ssm
             di = s.d_inner(d)
             nh = s.n_heads(d)
-            # in_proj (x, z, B, C, dt), conv, A, D, dt_bias, norm, out_proj
-            in_proj = d * (2 * di + 2 * s.d_state + nh)
-            return in_proj + s.conv_width * (di + 2 * s.d_state) + 3 * nh + di \
-                + di * d + d
+            conv = di + 2 * s.n_groups * s.d_state
+            # in_proj (z, x, B, C, dt), conv (+ bias), A, D, dt_bias, norm,
+            # out_proj, ln_ssm
+            in_proj = d * (di + conv + nh)
+            return in_proj + (s.conv_width + s.conv_bias) * conv + 3 * nh \
+                + di + di * d + d
 
         if self.kind == "ssm":
             total += self.n_layers * ssm_params()
             active = total
             return total, active
+
+        if self.zyphra:
+            a, f, r = self.attn_width, self.d_ff, self.adapter_rank
+            hq, hkv, hd = self.n_heads, self.n_kv_heads, self.hd
+            block = a + a * (hq + 2 * hkv) * hd + hq * hd * d + d + 3 * d * f
+            per_app = d * r + 2 * r * f + d * d   # adapter and linear
+            total += self.n_layers * ssm_params() \
+                + self.n_mem_blocks * block \
+                + len(self.hybrid_layer_ids) * per_app
+            return total, total
 
         if self.kind == "hybrid":
             per = ssm_params()  # the MLP lives in the shared block only

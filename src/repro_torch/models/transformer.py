@@ -12,10 +12,17 @@
            batch's precomputed ``patches`` embeddings (internvl2's vision
            frontend is a stub in the reference too);
   ssm    : Mamba2 (SSD) stack;
-  hybrid : zamba2 — Mamba2 superblocks of ``shared_attn_every`` layers,
-           each followed by one *shared* attention + MLP block (one set of
-           weights for every application), then a tail of
-           ``n_layers % shared_attn_every`` Mamba2 layers;
+  hybrid : the JAX package's zamba2 variant (``zamba2-7b``, not Zyphra's
+           block) — Mamba2 superblocks of ``shared_attn_every`` layers,
+           each followed by one *shared* attention + SwiGLU block (one set
+           of weights for every application, with its residual), then a
+           tail of ``n_layers % shared_attn_every`` Mamba2 layers; or,
+           with ``hybrid_layer_ids`` (``zamba2-7b-instruct``), Zyphra's
+           published layout: every layer Mamba2, and before each listed
+           layer one of ``n_mem_blocks`` shared blocks (attention over
+           concat(x, token embedding), a GeGLU MLP with the application's
+           own low-rank adapter, no residual) whose output, through the
+           application's own linear, is added to that Mamba2 layer's input;
   encdec / audio : whisper — a non-causal encoder over the batch's
            ``frames`` (B, enc_len, D) (the audio frontend is a stub in the
            reference too) plus sinusoidal positions, and a decoder whose
@@ -27,7 +34,9 @@ layouts (``params["layers"]["wq"]`` is (L, D, Hq*hd); windowed dense has
 ``local`` (n_super, global_every - 1, ...), ``global`` (n_super, ...) and
 ``tail`` (n_tail, ...); moe's expert leaves are (L, E, ...); hybrid has
 ``mamba`` (n_super, per, ...), ``tail`` (n_tail, ...) and an unstacked
-``shared_attn``; encdec has ``enc`` (n_enc_layers, ...), ``dec`` (L, ...)
+``shared_attn``, or in Zyphra's layout ``layers`` (L, ...), ``blocks``
+(n_mem_blocks, ...) and ``hybrid`` (one adapter and linear an
+application); encdec has ``enc`` (n_enc_layers, ...), ``dec`` (L, ...)
 whose cross-attention leaves carry a ``c`` prefix, and ``ln_enc_final``),
 so
 ``repro_torch.convert.params_from_jax`` loads the reference's parameters
@@ -50,8 +59,10 @@ replays.
 A sequence forward (S > 1) of CUDA bf16 tensors that autograd does not
 record runs each attention block's pointwise ops through the hand-written
 kernels of ``kernels/pointwise``: the norms, RoPE on q and k in place, the
-attention's residual add fused with the next norm, SwiGLU's gate. Training,
-the CPU, fp32, DTensors and the decode step run the plain ops.
+attention's residual add fused with the next norm, SwiGLU's gate. Zyphra's
+shared block takes only the two that compute its ops, the norms and RoPE:
+it has no residual add and a GELU MLP. Training, the CPU, fp32, DTensors
+and the decode step run the plain ops.
 """
 from __future__ import annotations
 
@@ -73,6 +84,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, rms_norm, rope_table
 from repro_torch.models.moe import moe_apply
 from repro_torch.models.ssm import mamba_block
+from repro_torch.obs.ranges import profiler_range
 from repro_torch.sharding import rules, shard
 
 Params = dict[str, Any]
@@ -88,10 +100,11 @@ EXPERT_LEAVES = ("moe_gate", "moe_up", "moe_down")
 SSD_IMPLS = ("kernel", "blocked")
 # stack dims of each layer group: dense/ssm "layers" (L,), windowed dense
 # "local" (n_super, global_every - 1) and "global" (n_super,), hybrid
-# "mamba" (n_super, per), "tail" (n_tail,), "shared_attn" unstacked,
-# encdec "enc" (n_enc_layers,) and "dec" (L,)
+# "mamba" (n_super, per), "tail" (n_tail,), "shared_attn" unstacked, Zyphra's
+# hybrid "blocks" (n_mem_blocks,) and "hybrid" (applications,), encdec "enc"
+# (n_enc_layers,) and "dec" (L,)
 STACK_DIMS = {"layers": 1, "local": 2, "global": 1, "mamba": 2, "tail": 1,
-              "shared_attn": 0, "enc": 1, "dec": 1}
+              "shared_attn": 0, "blocks": 1, "hybrid": 1, "enc": 1, "dec": 1}
 # the prefix of a decoder layer's cross-attention leaves (``cwq``, ...)
 CROSS = "c"
 # logical axes of each leaf without its stack dims (the reference's
@@ -109,8 +122,11 @@ LEAF_AXES = {
     "moe_up": ("experts", "embed", "expert_ff"),
     "moe_down": ("experts", "expert_ff", "embed"),
     "ln_ssm": ("embed",), "in_proj": ("embed", "ff"), "conv_w": (None, None),
+    "conv_b": (None,),
     "dt_bias": (None,), "A_log": (None,), "D": (None,), "ssm_norm": ("ff",),
     "out_proj": ("ff", "embed"),
+    "adapter": ("embed", None), "adapter_gate": (None, "ff"),
+    "adapter_up": (None, "ff"), "w_link": ("embed", None),
 }
 
 
@@ -129,7 +145,8 @@ class Model(nn.Module):
         super().__init__()
         if cfg.kind not in KINDS or (
                 cfg.window > 0 and cfg.kind != "dense") or (
-                cfg.kind == "hybrid" and cfg.shared_attn_every <= 0):
+                cfg.kind == "hybrid" and cfg.shared_attn_every <= 0
+                and not cfg.hybrid_layer_ids):
             raise NotImplementedError(
                 f"{cfg.name}: kind={cfg.kind!r}, window={cfg.window} is not "
                 f"ported yet; the port runs {KINDS}, a window on dense only "
@@ -171,10 +188,11 @@ class Model(nn.Module):
         layer's cross-attention (the reference's ``_attn_leaves(cross=)``)."""
         c = self.cfg
         d, hq, hkv, hd = c.d_model, c.n_heads, c.n_kv_heads, c.hd
-        return {pre + "ln_attn": stack + (d,),
-                pre + "wq": stack + (d, hq * hd),
-                pre + "wk": stack + (d, hkv * hd),
-                pre + "wv": stack + (d, hkv * hd),
+        a = c.attn_width
+        return {pre + "ln_attn": stack + (a,),
+                pre + "wq": stack + (a, hq * hd),
+                pre + "wk": stack + (a, hkv * hd),
+                pre + "wv": stack + (a, hkv * hd),
                 pre + "wo": stack + (hq * hd, d)}
 
     def _mlp_shapes(self, stack: tuple) -> dict[str, tuple]:
@@ -204,12 +222,24 @@ class Model(nn.Module):
     def _mamba_shapes(self, stack: tuple) -> dict[str, tuple]:
         c = self.cfg
         s, d = c.ssm, c.d_model
-        di, n, h, w = s.d_inner(d), s.d_state, s.n_heads(d), s.conv_width
-        return {"ln_ssm": stack + (d,),
-                "in_proj": stack + (d, 2 * di + 2 * n + h),
-                "conv_w": stack + (w, di + 2 * n), "dt_bias": stack + (h,),
-                "A_log": stack + (h,), "D": stack + (h,),
-                "ssm_norm": stack + (di,), "out_proj": stack + (di, d)}
+        di, h, w = s.d_inner(d), s.n_heads(d), s.conv_width
+        conv = di + 2 * s.n_groups * s.d_state
+        out = {"ln_ssm": stack + (d,), "in_proj": stack + (d, di + conv + h),
+               "conv_w": stack + (w, conv)}
+        if s.conv_bias:
+            out["conv_b"] = stack + (conv,)
+        out.update(dt_bias=stack + (h,), A_log=stack + (h,), D=stack + (h,),
+                   ssm_norm=stack + (di,), out_proj=stack + (di, d))
+        return out
+
+    def _app_shapes(self) -> dict[str, tuple]:
+        """Each application's own leaves in Zyphra's hybrid: the MLP's
+        rank-r adapter (d -> r, then r -> the gate's and the up product's
+        f) and the d x d linear into the next Mamba2 layer's input."""
+        c = self.cfg
+        n, d, r, f = len(c.hybrid_layer_ids), c.d_model, c.adapter_rank, c.d_ff
+        return {"adapter": (n, d, r), "adapter_gate": (n, r, f),
+                "adapter_up": (n, r, f), "w_link": (n, d, d)}
 
     def param_shapes(self) -> dict[str, Any]:
         """Leaf shapes of the parameter dict, in the reference's order."""
@@ -228,6 +258,10 @@ class Model(nn.Module):
             out["layers"] = self._attn_mlp_shapes((c.n_layers,))
         elif c.kind == "ssm":
             out["layers"] = self._mamba_shapes((c.n_layers,))
+        elif c.zyphra:
+            out["layers"] = self._mamba_shapes((c.n_layers,))
+            out["blocks"] = self._attn_mlp_shapes((c.n_mem_blocks,))
+            out["hybrid"] = self._app_shapes()
         elif c.kind in ENCDEC_KINDS:
             out["enc"] = self._attn_mlp_shapes((c.n_enc_layers,))
             dec = (c.n_layers,)
@@ -340,7 +374,7 @@ class Model(nn.Module):
             q = apply_rope(q, sin, cos)
             k = apply_rope(k, sin, cos)
         o = context_attention(q, k, v, causal=True, window=window,
-                              impl=c.attn_impl)
+                              impl=c.attn_impl, scale=c.attn_scale)
         o = rules.pin(o.reshape(b, s, -1))
         return shard(rules.matmul(o, p["wo"]), "batch", "seq", None), (k, v)
 
@@ -400,6 +434,33 @@ class Model(nn.Module):
             hh = F.silu(g) * rules.matmul(h, p["w_up"])
         return rules.matmul(shard(hh, "batch", "seq", "ff"), p["w_down"])
 
+    def _zamba_mlp(self, p, app, a, fused=False):
+        """The rest of Zyphra's shared block after its attention output
+        ``a`` (B, S, D): RMSNorm, GeGLU (exact GELU) whose gate and up
+        products gain the application's adapter, the down product, then
+        the application's linear. No residual: the caller adds the result
+        to the next Mamba2 layer's input. With ``fused`` the norm takes the
+        fused kernel (the block has no residual add or SwiGLU for the
+        others)."""
+        h = _norm(a, p["ln_mlp"], self.cfg.norm_eps, fused)
+        low = rules.matmul(h, app["adapter"])
+        g = rules.matmul(h, p["w_gate"]) + rules.matmul(low,
+                                                        app["adapter_gate"])
+        u = rules.matmul(h, p["w_up"]) + rules.matmul(low, app["adapter_up"])
+        m = rules.matmul(F.gelu(g) * u, p["w_down"])
+        return rules.matmul(m, app["w_link"])
+
+    def _zamba_block(self, p, x, e, sin, cos):
+        """Zyphra's shared block over the full sequence (``p["block"]``, the
+        application's ``p["app"]``): attention over concat(x, e) (e the
+        token embeddings), then :meth:`_zamba_mlp`. Returns (what it adds
+        to the Mamba2 layer's input, (k, v))."""
+        with profiler_range("zamba2/shared_block"):
+            fused = fused_route(x, p["block"])
+            t = torch.cat([x, e], dim=-1)
+            a, kv = self._attn_branch(p["block"], t, sin, cos, 0, fused)
+            return self._zamba_mlp(p["block"], p["app"], a, fused), kv
+
     @staticmethod
     def _index(tree: Params, *idx) -> dict[str, torch.Tensor]:
         """One layer's leaves of a stacked group."""
@@ -446,6 +507,9 @@ class Model(nn.Module):
         prefill attention's window (0: full causal) and ``rolling`` whether
         its cache is a rolling buffer of the last ``window`` positions;
         ``("mamba", p, (conv, state), 0, False)`` for a Mamba2 layer;
+        ``("zamba", p, (conv, state, k, v), 0, False)`` for a Mamba2 layer
+        of Zyphra's hybrid that a shared block precedes (``p["block"]``
+        the block's leaves, ``p["app"]`` the application's);
         ``("dec", p, (k_self, v_self, k_cross, v_cross), 0, False)`` for an
         encoder-decoder's decoder layer (self-attention, cross-attention,
         MLP). The cache views are None without a cache; ``train`` picks
@@ -477,6 +541,20 @@ class Model(nn.Module):
             for i in range(c.n_layers):
                 yield ("mamba", pick("layers", i),
                        views(("conv", i), ("state", i)), 0, False)
+        elif c.zyphra:
+            app = {lid: j for j, lid in enumerate(c.hybrid_layer_ids)}
+            for i in range(c.n_layers):
+                p = pick("layers", i)
+                j = app.get(i)
+                if j is None:
+                    yield ("mamba", p, views(("conv", i), ("state", i)), 0,
+                           False)
+                    continue
+                p = {**p, "block": pick("blocks", j % c.n_mem_blocks),
+                     "app": pick("hybrid", j)}
+                yield ("zamba", p, views(("conv", i), ("state", i),
+                                         ("k_shared", j), ("v_shared", j)),
+                       0, False)
         elif c.kind in ENCDEC_KINDS:
             for i in range(c.n_layers):
                 yield ("dec", pick("dec", i),
@@ -511,7 +589,9 @@ class Model(nn.Module):
         layers (RoPE positions are unchanged). An encoder-decoder's batch
         carries ``frames`` (B, T, D): the encoder's output over them is
         what every decoder layer cross-attends to, and each layer's cross
-        K/V fill rows 0..T-1 of its ``k_cross`` / ``v_cross`` leaves."""
+        K/V fill rows 0..T-1 of its ``k_cross`` / ``v_cross`` leaves. In
+        Zyphra's hybrid each application's K/V fill its ``k_shared`` /
+        ``v_shared`` rows."""
         c = self.cfg
         enc = self.encode(params, batch["frames"]) \
             if c.kind in ENCDEC_KINDS else None
@@ -521,6 +601,8 @@ class Model(nn.Module):
             patches = batch["patches"].to(x.dtype)
             x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
         x = shard(x, "batch", "seq", None)
+        if c.zyphra:          # the shared blocks read the token embeddings
+            enc = x
         s = x.shape[1]
         sin, cos = rope_table(torch.arange(s, device=x.device), c.hd,
                               c.rope_theta)
@@ -539,12 +621,22 @@ class Model(nn.Module):
 
     def _layer(self, kind, p, views, window, rolling, x, sin, cos, enc):
         """One entry of :meth:`_layers` over the full sequence: x (B, S, D)
-        -> x, writing its cache material into ``views`` when given."""
+        -> x, writing its cache material into ``views`` when given. ``enc``
+        is the encoder's output (encdec) or, in Zyphra's hybrid, the token
+        embeddings."""
         c = self.cfg
-        if kind == "mamba":
-            h = rms_norm(x, p["ln_ssm"], c.norm_eps)
+        if kind in ("mamba", "zamba"):
+            xin = x
+            if kind == "zamba":
+                m, kv = self._zamba_block(p, x, enc, sin, cos)
+                xin = x + m
+                if views is not None:
+                    for dst, src in zip(views[2:], kv):
+                        _place(dst, src, rolling)
+            h = rms_norm(xin, p["ln_ssm"], c.norm_eps)
             y, (conv, state) = mamba_block(
-                p, h, c.ssm, use_kernel=c.ssd_impl == "kernel")
+                p, h, c.ssm, use_kernel=c.ssd_impl == "kernel",
+                eps=c.norm_eps)
             if views is not None:
                 views[0].copy_(conv)
                 views[1].copy_(state)
@@ -650,7 +742,9 @@ class Model(nn.Module):
         windowed layers' rolling K/V of w = min(window, seq_len) slots
         (``k_local`` (n_super, global_every - 1, B, w, Hkv, hd), ``k_tail``
         (n_tail, B, w, Hkv, hd)); Mamba2 conv inputs (n, B, W-1, di+2N) and
-        SSM states (n, B, H, P, N) fp32; an encoder-decoder's self K/V
+        SSM states (n, B, H, P, N) fp32 (Zyphra's hybrid: one of each a
+        layer, and K/V ``k_shared`` (applications, B, S, Hkv, hd) one a
+        shared block's application); an encoder-decoder's self K/V
         ``k_self`` (L, B, S, Hkv, hd) and cross K/V ``k_cross`` (L, B,
         enc_len, Hkv, hd) — the reference's leaves and shapes. Given
         ``params`` and a ``batch`` with ``frames``, an encoder-decoder's
@@ -697,11 +791,15 @@ class Model(nn.Module):
                 cache["v_cross"] = zeros(kv(c.n_layers, c.enc_len))
             return cache
         s = c.ssm
-        conv = (b, s.conv_width - 1, s.d_inner(c.d_model) + 2 * s.d_state)
+        conv = (b, s.conv_width - 1,
+                s.d_inner(c.d_model) + 2 * s.n_groups * s.d_state)
         state = (b, s.n_heads(c.d_model), s.head_dim, s.d_state)
-        if c.kind == "ssm":
+        if c.kind == "ssm" or c.zyphra:
             cache["conv"] = zeros((c.n_layers,) + conv)
             cache["state"] = zeros((c.n_layers,) + state, torch.float32)
+            if c.zyphra:
+                cache["k_shared"] = zeros(kv(len(c.hybrid_layer_ids)))
+                cache["v_shared"] = zeros(kv(len(c.hybrid_layer_ids)))
             return cache
         stack = (self.n_super, c.shared_attn_every)
         cache["conv"] = zeros(stack + conv)
@@ -734,9 +832,12 @@ class Model(nn.Module):
         elif c.kind in ENCDEC_KINDS:
             for key in ("k_self", "v_self", "k_cross", "v_cross"):
                 ax[key] = kv
-        elif c.kind == "ssm":
+        elif c.kind == "ssm" or c.zyphra:
             ax["conv"] = (None, "batch", None, "ff")
             ax["state"] = (None, "batch", "q_heads", None, None)
+            if c.zyphra:
+                ax["k_shared"] = kv
+                ax["v_shared"] = kv
         else:
             ax["conv"] = (None, None, "batch", None, "ff")
             ax["state"] = (None, None, "batch", "q_heads", None, None)
@@ -764,7 +865,8 @@ class Model(nn.Module):
             val.index_fill_(axes[key].index("batch"), idx, 0)
         return cache
 
-    def _attn_decode(self, p, x, cache_kv, pos, rolling=False, cross=False):
+    def _attn_decode(self, p, x, cache_kv, pos, rolling=False, cross=False,
+                     residual=True):
         """x (B, 1, D); cache_kv = one layer's (k, v) cache views
         (B, S, Hkv, hd), written in place at each lane's position: slot
         ``min(pos, S - 1)``, or ``pos % S`` in a rolling buffer, which then
@@ -774,7 +876,9 @@ class Model(nn.Module):
 
         ``cross`` (a decoder layer's cross-attention, leaves named with the
         ``CROSS`` prefix): the cache is read only, no RoPE, and every lane
-        attends to all S encoder positions (``pos = S - 1``)."""
+        attends to all S encoder positions (``pos = S - 1``). Without
+        ``residual`` (Zyphra's shared block, whose x is the concatenated
+        input) the attention's output alone is returned."""
         c = self.cfg
         b = x.shape[0]
         k_cache, v_cache = cache_kv
@@ -796,8 +900,10 @@ class Model(nn.Module):
             else torch.clamp(pos, max=smax - 1)
         _write_lanes(k_cache, k[:, 0], slot)
         _write_lanes(v_cache, v[:, 0], slot)
-        o = decode_attention(q[:, 0], k_cache, v_cache, pos=pos)
-        return x + o.reshape(b, 1, -1) @ p["wo"]
+        o = decode_attention(q[:, 0], k_cache, v_cache, pos=pos,
+                             scale=c.attn_scale)
+        o = o.reshape(b, 1, -1) @ p["wo"]
+        return x + o if residual else o
 
     def decode_step(self, params: Params, cache, tokens: torch.Tensor):
         """tokens (B,) int32 -> (next_tokens (B,) int32, cache), the cache
@@ -807,12 +913,21 @@ class Model(nn.Module):
         x = shard(embedloss.embed_in(params["embed"], tokens[:, None],
                                      _dt(c.compute_dtype)), "batch", None,
                   None)
+        e = x
         for kind, p, views, _, rolling in self._layers(params, cache):
-            if kind == "mamba":
-                h = rms_norm(x, p["ln_ssm"], c.norm_eps)
+            if kind in ("mamba", "zamba"):
+                xin = x
+                if kind == "zamba":
+                    with profiler_range("zamba2/shared_block"):
+                        a = self._attn_decode(p["block"],
+                                              torch.cat([x, e], dim=-1),
+                                              views[2:], pos, residual=False)
+                        xin = x + self._zamba_mlp(p["block"], p["app"], a)
+                h = rms_norm(xin, p["ln_ssm"], c.norm_eps)
                 y, (conv, state) = mamba_block(p, h, c.ssm,
                                                conv_cache=views[0],
-                                               ssd_state=views[1])
+                                               ssd_state=views[1],
+                                               eps=c.norm_eps)
                 views[0].copy_(conv)
                 views[1].copy_(state)
                 x = x + y
@@ -846,7 +961,9 @@ def fused_route(x: torch.Tensor, p: dict[str, torch.Tensor]) -> bool:
     a tensor the kernels take (``pw.takes``: CUDA bf16; not a DTensor),
     S > 1, and autograd records neither x nor the layer's parameters ``p``
     (training keeps the plain ops and their gradients). The decode step's
-    (B, 1, D) calls keep the plain ops."""
+    (B, 1, D) calls keep the plain ops. Which kernels a route takes is the
+    block's to say: a dense block all four, Zyphra's shared block only the
+    norms and RoPE (``Model._zamba_block``)."""
     return x.shape[1] > 1 and pw.takes(x) and not rules.is_dtensor(x) \
         and not needs_grad(x, *p.values())
 

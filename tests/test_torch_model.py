@@ -55,24 +55,42 @@ def _err(t, j) -> float:
     return float(np.abs(t.float().numpy() - np.asarray(j, np.float32)).max())
 
 
+# the port's own fields, beyond the reference's (Zyphra's hybrid layout,
+# models/config.py), at these defaults in every architecture both packages
+# have; and the architectures only the port has (tests/test_torch_zamba2.py)
+PORT_ONLY = {"hybrid_layer_ids": (), "n_mem_blocks": 1, "attn_in": 0,
+             "adapter_rank": 0}
+SSM_PORT_ONLY = {"n_groups": 1, "conv_bias": False}
+PORT_ARCHS = ["zamba2-7b-instruct"]
+
+
 def _value(v):
     """A config field compared across the packages (their SSMConfig
-    dataclasses are distinct types)."""
-    return dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
+    dataclasses are distinct types; the port's own SSM fields are left
+    out)."""
+    if not dataclasses.is_dataclass(v):
+        return v
+    return {k: x for k, x in dataclasses.asdict(v).items()
+            if k not in SSM_PORT_ONLY}
 
 
 def test_registry_and_config_copy():
     ported = ARCHS + SSM_ARCHS + WINDOWED_ARCHS + MOE_VLM_ARCHS + ENCDEC_ARCHS
-    assert list_archs() == sorted(ported)
+    assert list_archs() == sorted(ported + PORT_ARCHS)
     for arch in ported:
         for ours, ref in ((get_smoke_config(arch), jax_smoke(arch)),
                           (get_config(arch), jax_config(arch))):
             ref_fields = {f.name for f in dataclasses.fields(ref)}
             assert ref_fields <= {f.name for f in dataclasses.fields(ours)}
+            assert {k: getattr(ours, k) for k in PORT_ONLY} == PORT_ONLY
+            if ours.ssm is not None:
+                assert {k: getattr(ours.ssm, k) for k in SSM_PORT_ONLY} \
+                    == SSM_PORT_ONLY
             diff = {f.name for f in dataclasses.fields(ours)
-                    if f.name not in ref_fields
-                    or _value(getattr(ours, f.name))
-                    != _value(getattr(ref, f.name))}
+                    if f.name not in PORT_ONLY and (
+                        f.name not in ref_fields
+                        or _value(getattr(ours, f.name))
+                        != _value(getattr(ref, f.name)))}
             # 'kernel' vs 'xla_flash', and the port's own ssd_impl
             assert diff == {"attn_impl", "ssd_impl"}, diff
             assert ours.attn_impl == "kernel" and ours.ssd_impl == "kernel"

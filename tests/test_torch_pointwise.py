@@ -30,9 +30,10 @@ from repro_torch.models.transformer import Model  # noqa: E402
 
 WRAPPERS = ("rms_norm_cuda", "add_rms_norm_cuda", "rope_qk_cuda",
             "swiglu_gate_cuda")
-# one smoke config of each family whose blocks run attention
+# one smoke config of each family whose blocks run attention (both hybrid
+# layouts: the JAX package's zamba2 variant and Zyphra's)
 ARCHS = ("stablelm-3b", "gemma3-1b", "zamba2-7b", "arctic-480b",
-         "internvl2-26b", "whisper-small")
+         "internvl2-26b", "whisper-small", "zamba2-7b-instruct")
 B, S = 2, 9
 
 
@@ -191,6 +192,13 @@ def test_sequence_forward_takes_the_fused_wrappers(arch, monkeypatch):
     if arch == "stablelm-3b":
         n = model.cfg.n_layers
         assert calls == dict.fromkeys(WRAPPERS, n)
+    if arch == "zamba2-7b-instruct":
+        # Zyphra's shared block, applied 3 times: its two norms (the
+        # concatenated input's and the MLP's) and RoPE, never the
+        # residual-add norm (it has no residual) or SwiGLU's gate (GeGLU)
+        n = len(model.cfg.hybrid_layer_ids)
+        assert calls == {"rms_norm_cuda": 2 * n, "add_rms_norm_cuda": 0,
+                         "rope_qk_cuda": n, "swiglu_gate_cuda": 0}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -386,11 +394,13 @@ def test_phi3_forward_matches_the_plain_path_on_card(card, monkeypatch):
 # shared block applied twice, arctic's dense residual beside its
 # experts); whisper's 2 encoder layers take two plain norms and a gate,
 # its 2 decoder layers a norm before self-attention, cross-attention and
-# the MLP, RoPE once and a gate, and no fused add
+# the MLP, RoPE once and a gate, and no fused add; Zyphra's shared block,
+# applied 3 times, two norms and RoPE only
 SMOKE_LAUNCHES = {"stablelm-3b": (2, 2, 2, 2), "gemma3-1b": (8, 8, 8, 8),
                   "zamba2-7b": (2, 2, 2, 2), "arctic-480b": (2, 2, 2, 2),
                   "internvl2-26b": (2, 2, 2, 2),
-                  "whisper-small": (10, 0, 2, 4)}
+                  "whisper-small": (10, 0, 2, 4),
+                  "zamba2-7b-instruct": (6, 0, 3, 0)}
 
 
 @pytest.mark.chip
