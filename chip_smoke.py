@@ -122,8 +122,18 @@ Then phi3's 28 GB are freed and zamba2-7b (Mamba2 + shared attention) runs:
             chunks must fail both gates. Two more plain bf16 paths
             (naive attention; the scan's output rounded to bf16) are
             logged beside them, the size of bf16's own noise.
+  decode_update_shapes : the decode update kernel
+            (``kernels/ssd_scan/decode.py``) at one of its Mamba2 layers
+            (112 heads of 64, d_state 64, one B/C group) over 4 lanes and
+            1, x, B and C in bf16 and in fp32: one launch each, the state
+            bit for bit and y within 1e-5 relative L2 of the plain ops.
   decode, serve, profile : as for phi3; the fp32 witness has every
-            layer.
+            layer. Every eager decode step (decode's, the eager serving
+            arms' and solo runs', the witness's) must launch the decode
+            update exactly once a Mamba2 layer, its count zeroed before
+            the step: a layer that fell back to the plain ops stops the
+            run. The prefills launch none (every prefill's launch counts
+            include ``ssd_decode``, and want 0 of it).
 Then zamba2's 13 GB are freed and zamba2-7b-instruct (Zyphra's published
 hybrid, 81 layers, 14.7 GB) runs:
   zamba2_instruct : both attention kernels at its shared blocks' shape
@@ -131,7 +141,11 @@ hybrid, 81 layers, 14.7 GB) runs:
             SSD kernel with two B/C groups at a layer's shape (4 x 2048,
             112 heads of 64, d_state 64), bf16, against their plain
             versions: times, the bound, the share of it, the SSD's four
-            kernels' device times; a bf16 prefill of 2 x 2048 tokens
+            kernels' device times; the decode update kernel at one layer
+            of 96 lanes (the state bit for bit, y within 1e-5 relative
+            L2 of the plain ops; its time and the plain ops' with their
+            copy back, calls back to back on two 176-MB states in turn,
+            so that L2 is cold); a bf16 prefill of 2 x 2048 tokens
             (exactly 81 SSD and 13 flash launches, 26 fused norms and 13
             fused RoPEs, no fused add or gate) whose hidden states of its
             first row lie against the fp32 reference of the benchmark
@@ -141,10 +155,15 @@ hybrid, 81 layers, 14.7 GB) runs:
             ``attention``, ``mamba/conv``, ``mamba/scan`` or
             ``mamba/update``, ``mamba/gated_norm``) in a 2,048-token
             prefill and in one eager decode step of 96 lanes at position
-            200 of a 384-slot cache. ``python3 chip_smoke.py
+            200 of a 384-slot cache, which must launch the decode update
+            once a layer (81, counted from zero before the step).
+            ``python3 chip_smoke.py
             zamba2_instruct`` builds the kernels and runs this phase alone.
 Then its weights are freed and mamba2-1.3b (the ssm family, whole,
-2.7 GB) serves as phi3 does, with an fp32 witness of every layer. Then
+2.7 GB) serves as phi3 does, with an fp32 witness of every layer, after
+the decode update kernel's check at its layer (64 heads of 64, d_state
+128) over 4 lanes and 1, bf16 and fp32, as zamba2-7b's; its eager steps
+gated as zamba2-7b's. Then
 gemma3-12b (40 sliding-window layers of
 window 1024 and 8 global layers, head dim 256) runs:
   gemma3_kernels : both attention kernels at head dim 256 against
@@ -345,8 +364,10 @@ from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_kernel_ref  # noqa: E402
 from repro_torch.kernels.pointwise import kernel as pw  # noqa: E402
+from repro_torch.kernels.ssd_scan import decode as sd  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
-from repro_torch.kernels.ssd_scan.ref import ssd_ref_sequential  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
+    ssd_decode_step, ssd_ref_sequential)
 from repro_torch.models import (  # noqa: E402
     attention, embedloss, layers, moe, ssm, transformer)
 from repro_torch.models.config import get_config, get_smoke_config  # noqa: E402
@@ -455,6 +476,13 @@ ZI_SSD = (4, 2048, 112, 64, 2, 64, 256)
 ZI_PREFILL = (2, 2048)
 ZI_REF_ROWS = 1
 ZI_DECODE = (96, 384, 200)
+# the decode update kernel against the plain ops: states cycled between
+# calls back to back (each 176 MB at ZI_DECODE's lanes, so that L2 is
+# cold), calls a mean; y's relative L2 limit (its sum over N in another
+# order than the plain GEMV; the state must be bit for bit)
+ZI_UPDATE_SETS = 2
+ZI_UPDATE_BACK_TO_BACK = 20
+ZI_UPDATE_Y_REL = 1e-5
 ZI_RANGES = ("zamba2/shared_block", "attention", "mamba/conv", "mamba/scan",
              "mamba/update", "mamba/gated_norm")
 # zamba2's prefill through 81 Mamba2 layers and 13 shared-attention
@@ -984,10 +1012,11 @@ def kv_rel_err(cache, ref, s: int, rows: dict | None = None
 @contextlib.contextmanager
 def prefill_attention(fn):
     """Every prefill attention call of the model replaced by ``fn(q, k, v,
-    causal, window)``: a control."""
+    causal, window, scale)``: a control."""
     saved = transformer.context_attention
     transformer.context_attention = \
-        lambda q, k, v, *, causal, window, impl: fn(q, k, v, causal, window)
+        lambda q, k, v, *, causal, window, impl, scale=None: fn(
+            q, k, v, causal, window, scale)
     try:
         yield
     finally:
@@ -999,8 +1028,8 @@ def causal_mask_one_ahead():
     lets every query see the key one position ahead, the off-by-one a
     faulty kernel could make."""
     return prefill_attention(
-        lambda q, k, v, causal, window: attention.flash_attention_xla(
-            q, k, v, causal=causal, window=window, q_offset=1))
+        lambda q, k, v, causal, window, scale: attention.flash_attention_xla(
+            q, k, v, causal=causal, window=window, q_offset=1, scale=scale))
 
 
 def window_ignored():
@@ -1008,8 +1037,8 @@ def window_ignored():
     layers see every earlier key (window 0), a kernel or model that drops
     the window."""
     return prefill_attention(
-        lambda q, k, v, causal, window: attention.flash_attention_xla(
-            q, k, v, causal=causal, window=0))
+        lambda q, k, v, causal, window, scale: attention.flash_attention_xla(
+            q, k, v, causal=causal, window=0, scale=scale))
 
 
 def phase_prefill(gen, rec: dict):
@@ -1097,20 +1126,48 @@ def widened():
         attention.fused_f32, layers.fused_f32 = saved
 
 
+def mamba_layers(model, params) -> int:
+    """The Mamba2 layers a decode step of ``model`` runs (none in a model
+    without them)."""
+    return sum(kind in ("mamba", "zamba") for kind, *_ in
+               model._layers(params))
+
+
+def gated_step(model):
+    """``model.decode_step``, each call required to launch the decode
+    update kernel (``kernels/ssd_scan/decode.py``) once a Mamba2 layer:
+    its count zeroed just before the step and read after it, so that a
+    Mamba2 layer that falls back to the plain ops stops the run. Only that
+    count: the phases around an eager step keep their others."""
+    want = {}
+
+    def step(params, cache, tokens):
+        if "n" not in want:
+            want["n"] = mamba_layers(model, params)
+        sd.launches = 0
+        out = model.decode_step(params, cache, tokens)
+        require(sd.launches == want["n"],
+                f"{model.cfg.name}: {sd.launches} decode update launches in "
+                f"an eager step, want {want['n']}")
+        return out
+    return step
+
+
 def phase_decode(cfg, model, params, cache, last, prompt: int):
     """``DECODE_STEPS`` greedy steps from a prefilled cache, timed one by
-    one; returns the tokens (B, DECODE_STEPS + 1), the first from the
-    prefill's last hidden state. A copy of the cache then decodes the same
-    tokens with the products widened (``widened``): the count of its
-    greedy tokens that differ from these is logged, not gated (the fused
-    products sum the same bf16 products in another order)."""
+    one, each launching the decode update once a Mamba2 layer
+    (:func:`gated_step`); returns the tokens (B, DECODE_STEPS + 1), the
+    first from the prefill's last hidden state. A copy of the cache then
+    decodes the same tokens with the products widened (``widened``): the
+    count of its greedy tokens that differ from these is logged, not gated
+    (the fused products sum the same bf16 products in another order)."""
     copy = {key: leaf.clone() for key, leaf in cache.items()}
     tok = embedloss.greedy(last, params["embed"], valid_vocab=cfg.vocab)
-    toks, times = [tok], []
+    toks, times, step = [tok], [], gated_step(model)
     for _ in range(DECODE_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tok, cache = model.decode_step(params, cache, tok)
+        tok, cache = step(params, cache, tok)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         toks.append(tok)
@@ -1140,10 +1197,10 @@ def phase_decode(cfg, model, params, cache, last, prompt: int):
 def solo_tokens(model, params, prompt, slots: int, max_len: int = 128,
                 eager: bool = False) -> list[int]:
     """Request 0 served alone by an engine of ``slots`` slots, in slot 0:
-    by the captured step, or ``eager``ly."""
+    by the captured step, or ``eager``ly (:func:`gated_step`)."""
     solo = ServeEngine(model, params, batch_slots=slots, max_len=max_len)
     if eager:
-        solo._step = model.decode_step
+        solo._step = gated_step(model)
     alone = Request(rid=0, prompt=prompt, max_new_tokens=16)
     solo.submit(alone)
     solo.step()
@@ -1200,16 +1257,16 @@ def fp32_witness(cfg, params, n_layers: int | None, in_place=False):
 
 def serve_run(model, params, prompts, eager: bool) -> tuple[list, dict]:
     """The requests through a 4-slot engine, by the captured step (the
-    engine's own on CUDA) or ``eager``ly (``engine._step =
-    model.decode_step``). Each step is timed on the host; each ends in the
-    copy of its tokens to the host. The first step holds the capture, so
-    it is logged apart; engine steps ``PROFILED_STEPS`` (every slot
-    streaming a prompt) run under the profiler and are left out of the
+    engine's own on CUDA) or ``eager``ly (``engine._step``: ``decode_step``
+    gated by :func:`gated_step`). Each step is timed on the host; each ends
+    in the copy of its tokens to the host. The first step holds the
+    capture, so it is logged apart; engine steps ``PROFILED_STEPS`` (every
+    slot streaming a prompt) run under the profiler and are left out of the
     step times, and of the wall time all but the traced steps' own wall
     time. Returns the requests and the arm's record."""
     engine = ServeEngine(model, params, batch_slots=4, max_len=128)
     if eager:
-        engine._step = model.decode_step
+        engine._step = gated_step(model)
     reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
             for i, p in enumerate(prompts)]
     for r in reqs:
@@ -1456,7 +1513,7 @@ def governed_arm(model, params, governed: bool, tracer=None,
                          clock=SimClock(), planner=planner, pace="fixed",
                          tracer=tracer, metrics=MetricsRegistry())
     if eager:
-        engine._step = model.decode_step
+        engine._step = gated_step(model)
     arrivals = bursty_arrivals(GOV_WINDOWS, base_rate=1, burst_rate=4,
                                burst_windows=(3, 4), latency_slo_s=0.5)
     res = run_serve_scenario(
@@ -1822,7 +1879,8 @@ def phase_pipeline(cfg, model, params, peaks) -> dict:
         rt.stop()
     rel_a = check_frames("A", stats_a, order_a, refs)
     require(launches_a == {"ssd_scan": 0, "chunked_attention": 0,
-                           "flash_attention": n_layers * n_a},
+                           "flash_attention": n_layers * n_a,
+                           "ssd_decode": 0},
             f"pipeline plan A: launches {launches_a}, not "
             f"{n_layers} x {n_a} flash")
     samples = sampler.samples()
@@ -1883,7 +1941,8 @@ def phase_pipeline(cfg, model, params, peaks) -> dict:
         rt.stop()
     rel_b = check_frames("B", stats_b, order_b, refs)
     require(launches_b == {"ssd_scan": 0, "chunked_attention": 0,
-                           "flash_attention": n_layers * PIPE_FRAMES_B},
+                           "flash_attention": n_layers * PIPE_FRAMES_B,
+                           "ssd_decode": 0},
             f"pipeline plan B: launches {launches_b}")
     require(rel_b <= PREFILL_REL_TOL,
             f"pipeline plan B: last hidden state {rel_b} from the "
@@ -1923,7 +1982,8 @@ def phase_pipeline(cfg, model, params, peaks) -> dict:
         finally:
             rt.stop()
         check_frames(f"C fit ({variant})", stats_f, order_f, refs)
-        want = {"ssd_scan": 0, "chunked_attention": 0, "flash_attention": 0}
+        want = {"ssd_scan": 0, "chunked_attention": 0, "flash_attention": 0,
+                "ssd_decode": 0}
         want[key] = n_layers * PIPE_FRAMES_FIT
         require(launches_f == want,
                 f"pipeline plan C fit ({variant}): launches {launches_f}")
@@ -1955,7 +2015,7 @@ def phase_pipeline(cfg, model, params, peaks) -> dict:
     want_c = {"ssd_scan": 0,
               "flash_attention": stage_layers(plan_c, "base") * PIPE_FRAMES_C,
               "chunked_attention": stage_layers(plan_c, "chunked")
-              * PIPE_FRAMES_C}
+              * PIPE_FRAMES_C, "ssd_decode": 0}
     require(launches_c == want_c,
             f"pipeline plan C: launches {launches_c}, the plan's variants "
             f"imply {want_c}")
@@ -2239,13 +2299,13 @@ def scan_output_in_bf16():
 
 
 def reset_launches() -> None:
-    fa.launches = ca.launches = sk.launches = 0
+    fa.launches = ca.launches = sk.launches = sd.launches = 0
     pw.launches.update(dict.fromkeys(pw.launches, 0))
 
 
 def launch_counts() -> dict[str, int]:
     return {"ssd_scan": sk.launches, "flash_attention": fa.launches,
-            "chunked_attention": ca.launches}
+            "chunked_attention": ca.launches, "ssd_decode": sd.launches}
 
 
 @contextlib.contextmanager
@@ -2312,7 +2372,7 @@ def phase_zamba_prefill(gen, fa_rec, ca_rec, ssd_rec):
     prefill_peak = torch.cuda.max_memory_allocated()
     launches = {"bf16 kernel": launch_counts()}
     want = {"ssd_scan": cfg.n_layers, "flash_attention": model.n_super,
-            "chunked_attention": 0}
+            "chunked_attention": 0, "ssd_decode": 0}
     require(launches["bf16 kernel"] == want,
             f"zamba2 prefill launches {launches['bf16 kernel']}, want {want}")
     launches["bf16 kernel pointwise"] = require_pointwise(
@@ -2468,6 +2528,102 @@ def range_ms(fn, names=ZI_RANGES) -> dict[str, float]:
     return {**out, "device_kernels_ms": busy}
 
 
+def update_inputs(gen, lanes: int, cfg, dtype=torch.bfloat16,
+                  sets: int = 1):
+    """A decode update's inputs at one Mamba2 layer of ``cfg`` over
+    ``lanes`` lanes, as ``mamba_block`` hands them: x, B and C column
+    views of one ``dtype`` projection (B and C (lanes, N) for one group,
+    (lanes, G, N) for G), dt after the softplus over the published dt
+    range, A = -1 .. -H; and ``sets`` fp32 states. Returns (states,
+    (x, dt, a, B, C))."""
+    d = cfg.d_model
+    h, p = cfg.ssm.n_heads(d), cfg.ssm.head_dim
+    n, g = cfg.ssm.d_state, cfg.ssm.n_groups
+    xbc = F.silu(torch.randn((lanes, 1, h * p + 2 * g * n), generator=gen,
+                             device=DEVICE)).to(dtype)
+    x = xbc[..., :h * p].unflatten(-1, (h, p))[:, 0]
+    bm, cm = xbc[..., h * p:h * p + g * n], xbc[..., h * p + g * n:]
+    if g > 1:
+        bm, cm = bm.unflatten(-1, (g, n)), cm.unflatten(-1, (g, n))
+    bias = torch.log(torch.expm1(torch.linspace(0.001, 0.1, h,
+                                                device=DEVICE)))
+    dt = F.softplus(torch.randn((lanes, 1, h), generator=gen, device=DEVICE)
+                    + bias)[:, 0]
+    a = -torch.arange(1, h + 1, dtype=torch.float32, device=DEVICE)
+    states = [torch.randn((lanes, h, p, n), generator=gen, device=DEVICE)
+              for _ in range(sets)]
+    return states, (x, dt, a, bm[:, 0], cm[:, 0])
+
+
+def update_errs(what: str, state, args) -> dict:
+    """The decode update kernel on ``state`` against the plain ops
+    (``ssd_decode_step`` on a copy): one launch, counted from zero, the
+    state bit for bit and y within ``ZI_UPDATE_Y_REL`` relative L2."""
+    want_y, want_s = ssd_decode_step(state, *args)
+    reset_launches()
+    y = sd.ssd_decode_update(state, *args)
+    errs = {"state_equal": bool(torch.equal(state, want_s)),
+            "y_rel_l2": float((y - want_y).norm() / want_y.norm()),
+            "launches": sd.launches}
+    require(errs["state_equal"] and errs["y_rel_l2"] <= ZI_UPDATE_Y_REL
+            and errs["launches"] == 1,
+            f"{what}: decode update kernel against the plain ops: {errs}")
+    return errs
+
+
+def phase_update_shapes(cfg, lanes: tuple[int, ...]) -> None:
+    """The decode update kernel against the plain ops at one Mamba2 layer
+    of ``cfg`` (its heads, head dim, d_state and groups) for each of
+    ``lanes``, x, B and C in bf16 (the model's step) and in fp32 (its
+    fp32 witness); from its own generator, so that the phases after it
+    see the data they saw before it was added."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 6)
+    errs = {}
+    for b in lanes:
+        for dtype in (torch.bfloat16, torch.float32):
+            what = f"{cfg.name} {b} lanes {str(dtype)[6:]}"
+            states, args = update_inputs(gen, b, cfg, dtype)
+            errs[what] = update_errs(what, states[0], args)
+    log(phase="decode_update_shapes", arch=cfg.name,
+        shape=[cfg.ssm.n_heads(cfg.d_model), cfg.ssm.head_dim,
+               cfg.ssm.d_state, cfg.ssm.n_groups], errs=errs)
+
+
+def decode_update_rec(gen, peaks, cfg) -> dict:
+    """The decode update kernel (``kernels/ssd_scan/decode.py``) at one
+    Mamba2 layer of the cell's step (``ZI_DECODE``'s lanes, bf16 inputs,
+    :func:`update_inputs`): :func:`update_errs`; the kernel's time and the
+    plain ops' with their copy back into the cache, each a mean over
+    ``ZI_UPDATE_BACK_TO_BACK`` calls back to back on ``ZI_UPDATE_SETS``
+    states in turn; the bound (the state read once and written once over
+    the memory rate) and the share of it."""
+    lanes = ZI_DECODE[0]
+    states, args = update_inputs(gen, lanes, cfg, sets=ZI_UPDATE_SETS)
+    errs = update_errs(cfg.name, states[0], args)
+
+    def plain(state):
+        y, new = ssd_decode_step(state, *args)
+        state.copy_(new)
+        return y
+
+    def mean_ms(fn):
+        def calls():
+            for i in range(ZI_UPDATE_BACK_TO_BACK):
+                fn(states[i % ZI_UPDATE_SETS])
+        return time_ms(calls, reps=10) / ZI_UPDATE_BACK_TO_BACK
+
+    ms = mean_ms(lambda state: sd.ssd_decode_update(state, *args))
+    plain_ms = mean_ms(plain)
+    shape = list(states[0].shape) + [cfg.ssm.n_groups]
+    nbytes = 2 * states[0].numel() * 4
+    bound_ms, bound_by = bound(0, nbytes, peaks)
+    del states
+    return dict(errs, shape=shape, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                gb_per_s=nbytes / ms / 1e6, share_of_bound=bound_ms / ms)
+
+
 def phase_zamba2_instruct(gen, peaks) -> dict:
     """Zyphra's zamba2 (``zamba2-7b-instruct``): its two kernels' shapes,
     a prefill against the benchmark's fp32 reference, and the program's
@@ -2524,6 +2680,7 @@ def phase_zamba2_instruct(gen, peaks) -> dict:
                    "share_of_bound": bound_ms / ms,
                    "kernels_ms": ssd_phase_ms(args, chunk)}
     del xbc, x, bm, cm, dt, args, y, st, yr, sr
+    recs["decode_update"] = decode_update_rec(gen, peaks, cfg)
     log(phase="zamba2_instruct_kernels", **recs)
 
     model = Model(cfg)
@@ -2541,7 +2698,7 @@ def phase_zamba2_instruct(gen, peaks) -> dict:
     forward_s = time.perf_counter() - t0
     napp = len(cfg.hybrid_layer_ids)
     want = {"ssd_scan": cfg.n_layers, "flash_attention": napp,
-            "chunked_attention": 0}
+            "chunked_attention": 0, "ssd_decode": 0}
     require(launch_counts() == want,
             f"zamba2-7b-instruct launches {launch_counts()}, want {want}")
     pointwise = require_pointwise("zamba2-7b-instruct forward", {
@@ -2582,13 +2739,19 @@ def phase_zamba2_instruct(gen, peaks) -> dict:
     cache["pos"].fill_(pos)
     tok = torch.randint(0, cfg.vocab, (lanes,), generator=gen,
                         device=DEVICE, dtype=torch.int32)
+    reset_launches()
     model.decode_step(params, cache, tok)                   # warm-up
+    update_launches = sd.launches
+    require(update_launches == cfg.n_layers,
+            f"{update_launches} decode update launches in a step, want "
+            f"{cfg.n_layers}")
     decode = _profile(lambda: model.decode_step(params, cache, tok))
     decode_ranges = range_ms(lambda: model.decode_step(params, cache, tok))
     log(phase="zamba2_instruct", forward_s=forward_s, launches=want,
         pointwise=pointwise, kernel_path=kernel_err, plain_path=plain_err,
         prefill_ranges_ms=prefill_ranges, decode_step=decode,
         decode_ranges_ms=decode_ranges,
+        update_launches_a_step=update_launches,
         decode_cache_gb=sum(t.numel() * t.element_size()
                             for t in cache.values()) / 1e9,
         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -2684,7 +2847,7 @@ def phase_gemma_prefill(gen, fa_rec, ca_rec):
     prefill_peak = torch.cuda.max_memory_allocated()
     launches = {"kernel": launch_counts()}
     want = {"ssd_scan": 0, "flash_attention": cfg.n_layers,
-            "chunked_attention": 0}
+            "chunked_attention": 0, "ssd_decode": 0}
     require(launches["kernel"] == want,
             f"gemma3 prefill launches {launches['kernel']}, want {want}")
     launches["kernel pointwise"] = require_pointwise(
@@ -3075,7 +3238,7 @@ def phase_moe_vlm_prefill(gen, cfg, model, params, info, fa_rec, ca_rec):
     prefill_peak = torch.cuda.max_memory_allocated()
     launches = {"kernel": launch_counts()}
     want = {"ssd_scan": 0, "flash_attention": cfg.n_layers,
-            "chunked_attention": 0}
+            "chunked_attention": 0, "ssd_decode": 0}
     require(launches["kernel"] == want,
             f"{cfg.name} prefill launches {launches['kernel']}, want {want}")
     # a dense SwiGLU beside the experts only with ``dense_residual``
@@ -3312,9 +3475,9 @@ def encoder_made_causal():
     queries are their keys (Sq = Skv = 1500); cross-attention (224 queries
     over 1500 keys) stays unmasked, the decoder's self-attention causal."""
     return prefill_attention(
-        lambda q, k, v, causal, window: attention.flash_attention_xla(
+        lambda q, k, v, causal, window, scale: attention.flash_attention_xla(
             q, k, v, causal=causal or q.shape[1] == k.shape[1],
-            window=window))
+            window=window, scale=scale))
 
 
 def phase_whisper_prefill(gen, fa_rec, ca_rec):
@@ -3355,7 +3518,7 @@ def phase_whisper_prefill(gen, fa_rec, ca_rec):
     launches = {"kernel": launch_counts()}
     n_attn = cfg.n_enc_layers + 2 * cfg.n_layers
     want = {"ssd_scan": 0, "flash_attention": n_attn,
-            "chunked_attention": 0}
+            "chunked_attention": 0, "ssd_decode": 0}
     require(launches["kernel"] == want,
             f"whisper prefill launches {launches['kernel']}, want {want}")
     # an encoder layer: two norms and a gate; a decoder layer: norms before
@@ -4282,6 +4445,7 @@ def main(argv=None) -> int:
     ssd_rec = phase_ssd_kernel(gen, added, peaks)
     cfg, model, params, cache, last = phase_zamba_prefill(
         gen, fa_rec, ca_rec, ssd_rec)
+    phase_update_shapes(cfg, (ZAMBA_ATTN[0], 1))
     phase_decode(cfg, model, params, cache, last, ZAMBA_ATTN[3])
     del cache
     peak_mem(cfg.name, "serve", phase_serve, gen, cfg, model, params)
@@ -4304,6 +4468,7 @@ def main(argv=None) -> int:
     cfg = get_config("mamba2-1.3b")
     model = Model(cfg)
     params = model.init(seed=SEED, device=DEVICE)
+    phase_update_shapes(cfg, (4, 1))     # the serve phase's slots, solo
     peak_mem(cfg.name, "serve", phase_serve, added, cfg, model, params)
     del cfg, model, params
     free_model("mamba2-1.3b")

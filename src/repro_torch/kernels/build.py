@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels from the sources in the checkout.
 
 The kernels (``*/csrc/*.cu``: flash attention, chunked two-pass attention,
-the SSD scan, the sequence forward's pointwise ops) are compiled by ``nvcc`` for ``sm_90a`` and bound to Python
-by ``torch.utils.cpp_extension.load`` as one extension, with one small
+the SSD scan and its decode update, the sequence forward's pointwise ops)
+are compiled by ``nvcc`` for ``sm_90a`` and bound to Python by
+``torch.utils.cpp_extension.load`` as one extension, with one small
 binding file (``csrc/binding.cpp``), the only source that includes
 PyTorch's headers; ninja compiles the sources in parallel. The build
 runs at first use, into ``build/kernels`` at the root of the checkout
@@ -19,6 +20,7 @@ SOURCES = (HERE / "csrc" / "binding.cpp",
            HERE / "flash_attention" / "csrc" / "flash_attention.cu",
            HERE / "flash_attention" / "csrc" / "chunked_attention.cu",
            HERE / "ssd_scan" / "csrc" / "ssd_scan.cu",
+           HERE / "ssd_scan" / "csrc" / "ssd_decode.cu",
            HERE / "pointwise" / "csrc" / "pointwise.cu")
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xptxas=-v")

@@ -31,6 +31,13 @@ cudaError_t ssd_scan_fwd_launch(
     const int64_t* b_strides, const int64_t* c_strides,
     const int64_t* y_strides, cudaStream_t stream);
 
+cudaError_t ssd_decode_update_launch(
+    float* state, float* y, const void* x, const float* dt, const float* a,
+    const void* bm, const void* cm, int dtype, int batch, int H, int P,
+    int N, int G, const int64_t* x_strides, const int64_t* dt_strides,
+    const int64_t* b_strides, const int64_t* c_strides,
+    cudaStream_t stream);
+
 cudaError_t rms_norm_fwd_launch(const void* x, const void* y, void* sum,
                                 void* h, const void* scale, int scale_bf16,
                                 int64_t rows, int d, float eps,
@@ -129,6 +136,28 @@ void ssd_scan_fwd(const torch::Tensor& x, const torch::Tensor& dt,
               cudaGetErrorString(err));
 }
 
+// state (B, H, P, N) fp32 contiguous, updated in place; y (B, H, P) fp32
+// contiguous; x (B, H, P), dt (B, H), B and C (B, G, N), last dims
+// contiguous. The Python wrapper has checked them.
+void ssd_decode_update(const torch::Tensor& state, const torch::Tensor& y,
+                       const torch::Tensor& x, const torch::Tensor& dt,
+                       const torch::Tensor& a, const torch::Tensor& bm,
+                       const torch::Tensor& cm) {
+  const c10::cuda::CUDAGuard guard(state.device());
+  const std::array<int64_t, 2> xs{x.stride(0), x.stride(1)},
+      dts{dt.stride(0), dt.stride(1)}, bs{bm.stride(0), bm.stride(1)},
+      cs{cm.stride(0), cm.stride(1)};
+  const cudaError_t err = ssd_decode_update_launch(
+      state.data_ptr<float>(), y.data_ptr<float>(), x.data_ptr(),
+      dt.data_ptr<float>(), a.data_ptr<float>(), bm.data_ptr(),
+      cm.data_ptr(), x.scalar_type() == torch::kBFloat16 ? 1 : 0,
+      state.size(0), state.size(1), state.size(2), state.size(3),
+      bm.size(1), xs.data(), dts.data(), bs.data(), cs.data(),
+      c10::cuda::getCurrentCUDAStream().stream());
+  TORCH_CHECK(err == cudaSuccess, "ssd_decode_update kernel launch failed: ",
+              cudaGetErrorString(err));
+}
+
 // x, h (..., D) bf16 contiguous, scale (D,) bf16 or fp32; y and sum
 // empty for the plain norm, else like x: sum = x + y, h = norm(sum). The
 // Python wrapper has checked them.
@@ -184,6 +213,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_attention_fwd", &flash_attention_fwd);
   m.def("chunked_attention_fwd", &chunked_attention_fwd);
   m.def("ssd_scan_fwd", &ssd_scan_fwd);
+  m.def("ssd_decode_update", &ssd_decode_update);
   m.def("rms_norm_fwd", &rms_norm_fwd);
   m.def("rope_qk_fwd", &rope_qk_fwd);
   m.def("swiglu_gate_fwd", &swiglu_gate_fwd);

@@ -1,5 +1,5 @@
-"""Plain PyTorch version of the SSD kernel: the naive sequential
-recurrence, one step per position."""
+"""Plain PyTorch versions of the SSD kernels: the scan's naive sequential
+recurrence, one step per position, and the one-token decode update."""
 from __future__ import annotations
 
 import torch
@@ -30,3 +30,26 @@ def ssd_ref_sequential(x, dt, a, bmat, cmat, init_state=None):
         state = state * torch.exp(dt_t * af)[..., None, None] + upd
         ys[:, t] = torch.einsum("bhn,bhpn->bhp", cf[:, t], state)
     return ys.to(x.dtype), state
+
+
+def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t):
+    """One-token state update. x_t (B, H, P); dt_t (B, H); B/C_t (B, N),
+    or (B, G, N) by group. Returns (y (B, H, P), new_state (B, H, P, N)),
+    both fp32."""
+    dt_t = dt_t.float()
+    dA = torch.exp(dt_t * A.float())                         # (B, H)
+    if B_t.dim() == 2:
+        upd = (dt_t[:, :, None] * x_t.float())[..., None] \
+            * B_t.float()[:, None, None, :]
+        new_state = state.float() * dA[..., None, None] + upd
+        y = torch.einsum("bn,bhpn->bhp", C_t.float(), new_state)
+        return y, new_state
+    # grouped: the heads as (G, H / G), each group's heads on its B and C
+    b, h, p = x_t.shape
+    g, n = B_t.shape[1:]
+    upd = (dt_t[:, :, None] * x_t.float()).view(b, g, h // g, p)[..., None] \
+        * B_t.float()[:, :, None, None, :]
+    new_state = state.float().view(b, g, h // g, p, n) \
+        * dA.view(b, g, h // g)[..., None, None] + upd
+    y = torch.einsum("bgn,bgrpn->bgrp", C_t.float(), new_state)
+    return y.reshape(b, h, p), new_state.view(b, h, p, n)

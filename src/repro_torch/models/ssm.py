@@ -10,6 +10,11 @@ Zyphra's zamba2 with ``SSMConfig.n_groups`` 2]; state (B, H, P, N).
 kernel (``repro_torch.kernels.ssd_scan.kernel.ssd_cuda``, its plain
 version for CPU tensors); ``use_kernel=False`` runs ``ssd_ref``, the
 blocked plain-torch decomposition. Both continue a given ``ssd_state``.
+The decode update (L = 1 with a state) leaves the new state in the
+given one: the hand-written kernel
+``kernels.ssd_scan.decode.ssd_decode_update`` updates it in place where
+:func:`decode_route` holds; elsewhere the plain ``ssd_decode_step`` (kept
+in ``kernels/ssd_scan/ref.py``) runs and its new state is copied in.
 One deliberate difference from the reference: its kernel path silently
 drops a given ``ssd_state`` for L > 1 (``repro/models/ssm.py:126-129``),
 while the port's kernel continues the scan from it, as the reference's
@@ -30,7 +35,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.autograd import needs_grad
+from repro_torch.kernels.ssd_scan import decode as sd
 from repro_torch.kernels.ssd_scan.kernel import ssd_cuda
+from repro_torch.kernels.ssd_scan.ref import ssd_decode_step
 from repro_torch.models.config import SSMConfig
 from repro_torch.models.layers import rms_norm
 from repro_torch.obs.ranges import profiler_range
@@ -96,27 +104,17 @@ def ssd_ref(x, dt, A, B, C, chunk: int = 128, init_state=None):
     return y.reshape(b, lp, h, p)[:, :l], s.reshape(b, h, p, n)
 
 
-def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t):
-    """One-token state update. x_t (B, H, P); dt_t (B, H); B/C_t (B, N),
-    or (B, G, N) by group. Returns (y (B, H, P), new_state (B, H, P, N)),
-    both fp32."""
-    dt_t = dt_t.float()
-    dA = torch.exp(dt_t * A.float())                         # (B, H)
-    if B_t.dim() == 2:
-        upd = (dt_t[:, :, None] * x_t.float())[..., None] \
-            * B_t.float()[:, None, None, :]
-        new_state = state.float() * dA[..., None, None] + upd
-        y = torch.einsum("bn,bhpn->bhp", C_t.float(), new_state)
-        return y, new_state
-    # grouped: the heads as (G, H / G), each group's heads on its B and C
-    b, h, p = x_t.shape
-    g, n = B_t.shape[1:]
-    upd = (dt_t[:, :, None] * x_t.float()).view(b, g, h // g, p)[..., None] \
-        * B_t.float()[:, :, None, None, :]
-    new_state = state.float().view(b, g, h // g, p, n) \
-        * dA.view(b, g, h // g)[..., None, None] + upd
-    y = torch.einsum("bgn,bgrpn->bgrp", C_t.float(), new_state)
-    return y.reshape(b, h, p), new_state.view(b, h, p, n)
+def decode_route(state, x_t, *inputs) -> bool:
+    """Whether the decode update of ``state`` (B, H, P, N) takes the
+    kernel, decided once a call from what it is given: neither the state
+    nor x_t is a DTensor, the kernel takes the arguments (``decode.takes``,
+    the same definition its argument checks raise from: a CUDA fp32
+    contiguous state of a state dim it is built for, and the rest), and
+    autograd records none of them. The CPU, the mesh path, training and
+    other shapes keep the plain ops."""
+    return not rules.is_dtensor(state) and not rules.is_dtensor(x_t) \
+        and sd.takes(state, x_t, *inputs) \
+        and not needs_grad(state, x_t, *inputs)
 
 
 def causal_conv(x, w, cache=None, bias=None):
@@ -178,10 +176,12 @@ def mamba_block(params, x, cfg: SSMConfig, *, conv_cache=None,
                 ssd_state=None, chunk=None, use_kernel=False,
                 eps: float = 1e-6):
     """Full Mamba2 block. x (B, L, D). Returns (out, (conv_cache,
-    ssd_state fp32)). in_proj's columns are [z | x | B | C | dt], B and C
-    ``n_groups`` groups of ``d_state`` each; ``conv_b``, where the
-    parameters hold it, is the conv's bias; the gated norm (``eps``) runs
-    over each group's d_inner / n_groups channels."""
+    ssd_state fp32)); a decode step (L = 1 with ``ssd_state``) updates
+    ``ssd_state`` in place and returns it. in_proj's columns are [z | x |
+    B | C | dt], B and C ``n_groups`` groups of ``d_state`` each;
+    ``conv_b``, where the parameters hold it, is the conv's bias; the
+    gated norm (``eps``) runs over each group's d_inner / n_groups
+    channels."""
     b, l, d = x.shape
     di = cfg.d_inner(d)
     n, g = cfg.d_state, cfg.n_groups
@@ -204,9 +204,13 @@ def mamba_block(params, x, cfg: SSMConfig, *, conv_cache=None,
                      "q_heads", None)
     if l == 1 and ssd_state is not None:
         with profiler_range("mamba/update"):
-            y, new_state = ssd_decode_step(ssd_state, xh[:, 0], dt[:, 0], A,
-                                           Bv[:, 0], Cv[:, 0])
-        y = y[:, None]
+            args = (xh[:, 0], dt[:, 0], A, Bv[:, 0], Cv[:, 0])
+            if decode_route(ssd_state, *args):
+                y = sd.ssd_decode_update(ssd_state, *args)
+            else:
+                y, new_state = ssd_decode_step(ssd_state, *args)
+                ssd_state.copy_(new_state)
+        y, new_state = y[:, None], ssd_state
     else:
         with profiler_range("mamba/scan"):
             y, new_state = _scan_heads(ssd_cuda if use_kernel else ssd_ref,

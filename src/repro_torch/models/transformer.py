@@ -924,12 +924,11 @@ class Model(nn.Module):
                                               views[2:], pos, residual=False)
                         xin = x + self._zamba_mlp(p["block"], p["app"], a)
                 h = rms_norm(xin, p["ln_ssm"], c.norm_eps)
-                y, (conv, state) = mamba_block(p, h, c.ssm,
-                                               conv_cache=views[0],
-                                               ssd_state=views[1],
-                                               eps=c.norm_eps)
-                views[0].copy_(conv)
-                views[1].copy_(state)
+                y, (conv, _) = mamba_block(p, h, c.ssm,
+                                           conv_cache=views[0],
+                                           ssd_state=views[1],
+                                           eps=c.norm_eps)
+                views[0].copy_(conv)       # the state is updated in place
                 x = x + y
             else:
                 x = self._attn_decode(p, x, views[:2], pos, rolling)
