@@ -1059,15 +1059,15 @@ def phase_prefill(gen, rec: dict):
     init_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
 
-    reset_launches()
+    build.launches.clear()
     t0 = time.perf_counter()
     cache, last = model.prefill(params, batch, CACHE_LEN)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_peak = torch.cuda.max_memory_allocated()
-    launches = fa.launches
+    launches = build.launches["flash_attention"]
     require(launches == cfg.n_layers, f"{launches} kernel launches")
-    fused = require_pointwise("phi3 prefill", pointwise_want(cfg.n_layers))
+    fused = require_launches("phi3 prefill", pointwise_want(cfg.n_layers))
     rec["launches"] = launches
 
     plain = Model(dataclasses.replace(cfg, attn_impl="xla_flash"))
@@ -1144,11 +1144,11 @@ def gated_step(model):
     def step(params, cache, tokens):
         if "n" not in want:
             want["n"] = mamba_layers(model, params)
-        sd.launches = 0
+        build.launches["ssd_decode"] = 0
         out = model.decode_step(params, cache, tokens)
-        require(sd.launches == want["n"],
-                f"{model.cfg.name}: {sd.launches} decode update launches in "
-                f"an eager step, want {want['n']}")
+        n = build.launches["ssd_decode"]
+        require(n == want["n"], f"{model.cfg.name}: {n} decode update "
+                f"launches in an eager step, want {want['n']}")
         return out
     return step
 
@@ -1562,7 +1562,7 @@ def phase_governed_serve(cfg, model, params) -> None:
     run's generators."""
     replay = Model(get_smoke_config(GOV_REPLAY_ARCH))
     replay_params = replay.init(SEED, device="cpu")
-    reset_launches()
+    build.launches.clear()
     out = {}
     for governed, eager in ((True, False), (False, False), (True, True)):
         arm = ("governed" if governed else "max_perf") + \
@@ -1644,7 +1644,7 @@ def phase_governed_serve(cfg, model, params) -> None:
                 f"governed serve ({arm}): request 0's tokens differ from "
                 f"its 4-slot solo run from token "
                 f"{first_diff(solo, res.requests[0].out)}")
-    log(phase="governed_serve", arch=cfg.name, launches=launch_counts(),
+    log(phase="governed_serve", arch=cfg.name, launches=dict(build.launches),
         governed_captured_equals_eager=True,
         modelled_joules_per_token_saved=1 - gov.joules_per_token
         / maxp.joules_per_token,
@@ -1727,24 +1727,25 @@ def monolithic(cfg, model, params, frame):
     return tok.cpu().numpy(), last.float().cpu()
 
 
-def pipe_run(rt, frames, warmup: int, layers: int, around=None):
+def pipe_run(rt, frames, what: str, layers: int, want: dict[str, int],
+             warmup: int, around=None):
     """``warmup`` frames through the started runtime ``rt`` (every replica
     makes its stream, the first launches), then ``frames`` with the
-    launch counts set to 0 just before and read just after, inside the
-    context ``around`` (the power sampler). Every one of the ``layers``
-    layer tasks of every frame must launch each fused pointwise kernel
-    once. Returns (stats, launches, the fused pointwise launches)."""
+    ledger cleared just before and read just after, inside the context
+    ``around`` (the power sampler). The run must launch the attention and
+    SSD kernels as ``want`` says, and every one of the ``layers`` layer
+    tasks of every frame each fused pointwise kernel once. Returns (stats,
+    the launches)."""
     rt.run(frames[:warmup], timeout_s=600.0)
     if rt.tracer is not None:
         rt.tracer.drain()
     torch.cuda.synchronize()
-    reset_launches()
+    build.launches.clear()
     with around or contextlib.nullcontext():
         stats = rt.run(frames, timeout_s=600.0)
-    launches = launch_counts()
-    fused = require_pointwise(f"pipeline, {len(frames)} frames",
-                              pointwise_want(layers * len(frames)))
-    return stats, launches, fused
+    return stats, require_launches(
+        f"pipeline {what}, {len(frames)} frames",
+        {**want, **pointwise_want(layers * len(frames))})
 
 
 def check_frames(plan: str, stats, order, refs) -> float:
@@ -1870,19 +1871,16 @@ def phase_pipeline(cfg, model, params, peaks) -> dict:
                                        / (probe["total_s"] / 4)))
         order_a, frames_a = frames(n_a)
         sampler = PowerSampler()
-        stats_a, launches_a, fused_a = pipe_run(rt, frames_a, warmup=2,
-                                                layers=n_layers,
-                                                around=sampler)
+        stats_a, launches_a = pipe_run(
+            rt, frames_a, "plan A", n_layers,
+            {"ssd_scan": 0, "chunked_attention": 0,
+             "flash_attention": n_layers * n_a, "ssd_decode": 0},
+            warmup=2, around=sampler)
         events = to_chrome_events(tracer.drain(), t0=0.0)
         prof_a = _profile(lambda: rt.run(frames_a[:8], timeout_s=600.0))
     finally:
         rt.stop()
     rel_a = check_frames("A", stats_a, order_a, refs)
-    require(launches_a == {"ssd_scan": 0, "chunked_attention": 0,
-                           "flash_attention": n_layers * n_a,
-                           "ssd_decode": 0},
-            f"pipeline plan A: launches {launches_a}, not "
-            f"{n_layers} x {n_a} flash")
     samples = sampler.samples()
     capture = parse_rapl_log(rapl_log(samples))
     attr = attribute_energy(events, capture,
@@ -1909,8 +1907,7 @@ def phase_pipeline(cfg, model, params, peaks) -> dict:
         profile_top_ms=prof_a["top_ms"],
         tokens_per_s=PIPE_TOKENS * stats_a["throughput_fps"],
         busy_s=stats_a["busy_s"][(name_a, 0)], total_s=stats_a["total_s"],
-        launches=launches_a, pointwise_launches=fused_a,
-        tokens_equal_monolithic=True,
+        launches=launches_a, tokens_equal_monolithic=True,
         last_hidden_rel_err=rel_a, power_samples=len(samples),
         power_sampler_ms=PIPE_POWER_MS, capture_s=capture.extent,
         trace_extent_s=attr.extent_s, measured_j=attr.measured_j,
@@ -1934,16 +1931,15 @@ def phase_pipeline(cfg, model, params, peaks) -> dict:
     order_b, frames_b = frames(PIPE_FRAMES_B)
     rt = StreamingPipelineRuntime.from_plan(plan_b, builder).start()
     try:
-        stats_b, launches_b, fused_b = pipe_run(rt, frames_b, warmup=6,
-                                                layers=n_layers)
+        stats_b, launches_b = pipe_run(
+            rt, frames_b, "plan B", n_layers,
+            {"ssd_scan": 0, "chunked_attention": 0,
+             "flash_attention": n_layers * PIPE_FRAMES_B, "ssd_decode": 0},
+            warmup=6)
         prof = _profile(lambda: rt.run(frames_b[:16], timeout_s=600.0))
     finally:
         rt.stop()
     rel_b = check_frames("B", stats_b, order_b, refs)
-    require(launches_b == {"ssd_scan": 0, "chunked_attention": 0,
-                           "flash_attention": n_layers * PIPE_FRAMES_B,
-                           "ssd_decode": 0},
-            f"pipeline plan B: launches {launches_b}")
     require(rel_b <= PREFILL_REL_TOL,
             f"pipeline plan B: last hidden state {rel_b} from the "
             f"monolithic prefill's, over {PREFILL_REL_TOL}")
@@ -1960,7 +1956,7 @@ def phase_pipeline(cfg, model, params, peaks) -> dict:
         replica_frames={f"{k[0]}/r{k[1]}": v
                         for k, v in stats_b["replica_frames"].items()},
         total_s=stats_b["total_s"], launches=launches_b,
-        pointwise_launches=fused_b, tokens_equal_monolithic=True,
+        tokens_equal_monolithic=True,
         last_hidden_rel_err=rel_b,
         rel_err_limit=PREFILL_REL_TOL,
         profile_16_frames={k: v for k, v in prof.items() if k != "top_ms"})
@@ -1976,17 +1972,15 @@ def phase_pipeline(cfg, model, params, peaks) -> dict:
         order_f, frames_f = frames(PIPE_FRAMES_FIT)
         rt = StreamingPipelineRuntime([StageSpec(
             name_a, fn, device_class="big", variant=variant)]).start()
-        try:
-            stats_f, launches_f, _ = pipe_run(rt, frames_f, warmup=2,
-                                              layers=n_layers)
-        finally:
-            rt.stop()
-        check_frames(f"C fit ({variant})", stats_f, order_f, refs)
         want = {"ssd_scan": 0, "chunked_attention": 0, "flash_attention": 0,
                 "ssd_decode": 0}
         want[key] = n_layers * PIPE_FRAMES_FIT
-        require(launches_f == want,
-                f"pipeline plan C fit ({variant}): launches {launches_f}")
+        try:
+            stats_f, _ = pipe_run(rt, frames_f, f"plan C fit ({variant})",
+                                  n_layers, want, warmup=2)
+        finally:
+            rt.stop()
+        check_frames(f"C fit ({variant})", stats_f, order_f, refs)
         observations += observations_from_run(rt.stages, stats_f)
         fit_runs[variant] = stats_f["period_s"] * 1e3
     fit = fit_variant_multipliers(observations)
@@ -2006,19 +2000,17 @@ def phase_pipeline(cfg, model, params, peaks) -> dict:
                                   device=DEVICE)
     order_c, frames_c = frames(PIPE_FRAMES_C)
     rt = StreamingPipelineRuntime.from_plan(plan_c, builder).start()
-    try:
-        stats_c, launches_c, fused_c = pipe_run(rt, frames_c, warmup=6,
-                                                layers=n_layers)
-    finally:
-        rt.stop()
-    rel_c = check_frames("C", stats_c, order_c, refs)
+    # the launches the plan's variants imply
     want_c = {"ssd_scan": 0,
               "flash_attention": stage_layers(plan_c, "base") * PIPE_FRAMES_C,
               "chunked_attention": stage_layers(plan_c, "chunked")
               * PIPE_FRAMES_C, "ssd_decode": 0}
-    require(launches_c == want_c,
-            f"pipeline plan C: launches {launches_c}, the plan's variants "
-            f"imply {want_c}")
+    try:
+        stats_c, launches_c = pipe_run(rt, frames_c, "plan C", n_layers,
+                                       want_c, warmup=6)
+    finally:
+        rt.stop()
+    rel_c = check_frames("C", stats_c, order_c, refs)
     log(phase="pipeline", plan="C", arch=cfg.name, system=list(PIPE_B),
         fit_period_ms=fit_runs, fitted_chunked_multiplier=mult,
         fit=fit, tpu_round_preset=[1.30, 0.82],
@@ -2026,8 +2018,7 @@ def phase_pipeline(cfg, model, params, peaks) -> dict:
         stages=stages(plan_c), frames=PIPE_FRAMES_C,
         planned_period_ms=plan_c.period_us / 1e3,
         measured_period_ms=stats_c["period_s"] * 1e3,
-        launches=launches_c, launches_implied=want_c,
-        pointwise_launches=fused_c, tokens_equal_monolithic=True,
+        launches=launches_c, tokens_equal_monolithic=True,
         last_hidden_rel_err=rel_c)
     log(phase="pipeline", arch=cfg.name, one_card_one_class=True,
         gemm_flop_s=rates["gemm_flop_s"], copy_bytes_s=rates["copy_bytes_s"])
@@ -2298,16 +2289,6 @@ def scan_output_in_bf16():
         ssm.ssd_ref = saved
 
 
-def reset_launches() -> None:
-    fa.launches = ca.launches = sk.launches = sd.launches = 0
-    pw.launches.update(dict.fromkeys(pw.launches, 0))
-
-
-def launch_counts() -> dict[str, int]:
-    return {"ssd_scan": sk.launches, "flash_attention": fa.launches,
-            "chunked_attention": ca.launches, "ssd_decode": sd.launches}
-
-
 @contextlib.contextmanager
 def plain_pointwise():
     """The sequence forward's pointwise ops as the plain ops of
@@ -2331,12 +2312,11 @@ def pointwise_want(blocks: int, gates: int | None = None) -> dict[str, int]:
             "swiglu_gate": blocks if gates is None else gates}
 
 
-def require_pointwise(what: str, want: dict[str, int]) -> dict[str, int]:
-    """The fused pointwise launches since ``reset_launches`` must be
-    ``want``; returns them."""
-    got = dict(pw.launches)
-    require(got == want, f"{what}: fused pointwise launches {got}, want "
-            f"{want}")
+def require_launches(what: str, want: dict[str, int]) -> dict[str, int]:
+    """The ledger's launches since its last ``clear()`` of each kernel
+    that ``want`` names must be ``want``'s; returns them."""
+    got = {k: build.launches[k] for k in want}
+    require(got == want, f"{what}: launches {got}, want {want}")
     return got
 
 
@@ -2364,37 +2344,30 @@ def phase_zamba_prefill(gen, fa_rec, ca_rec, ssd_rec):
     torch.cuda.reset_peak_memory_stats()
 
     # the main path: bf16, SSD and flash kernels
-    reset_launches()
+    build.launches.clear()
     t0 = time.perf_counter()
     cache, last = model.prefill(params, batch, CACHE_LEN)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_peak = torch.cuda.max_memory_allocated()
-    launches = {"bf16 kernel": launch_counts()}
     want = {"ssd_scan": cfg.n_layers, "flash_attention": model.n_super,
             "chunked_attention": 0, "ssd_decode": 0}
-    require(launches["bf16 kernel"] == want,
-            f"zamba2 prefill launches {launches['bf16 kernel']}, want {want}")
-    launches["bf16 kernel pointwise"] = require_pointwise(
-        "zamba2 prefill", pointwise_want(model.n_super))
+    launches = {"bf16 kernel": require_launches(
+        "zamba2 prefill", {**want, **pointwise_want(model.n_super)})}
     require(last.shape == (b, cfg.d_model) and torch.isfinite(last).all(),
             "last hidden state shape or finiteness")
     # the same weights through the chunked kernel, and the plain paths
     chunked = Model(dataclasses.replace(cfg, attn_impl="chunked"))
     plain = Model(dataclasses.replace(cfg, attn_impl="xla_flash",
                                       ssd_impl="blocked"))
-    reset_launches()
+    build.launches.clear()
     t0 = time.perf_counter()
     runs = {"chunked": chunked.prefill(params, batch, CACHE_LEN)}
     torch.cuda.synchronize()
     chunked_s = time.perf_counter() - t0
-    launches["bf16 chunked"] = launch_counts()
     want_c = dict(want, flash_attention=0, chunked_attention=model.n_super)
-    require(launches["bf16 chunked"] == want_c,
-            f"chunked prefill launches {launches['bf16 chunked']}, "
-            f"want {want_c}")
-    launches["bf16 chunked pointwise"] = require_pointwise(
-        "zamba2 chunked prefill", pointwise_want(model.n_super))
+    launches["bf16 chunked"] = require_launches(
+        "zamba2 chunked prefill", {**want_c, **pointwise_want(model.n_super)})
     with plain_pointwise():
         runs["plain"] = plain.prefill(params, batch, CACHE_LEN)
         with ssd_dropped_carry():
@@ -2435,17 +2408,15 @@ def phase_zamba_prefill(gen, fa_rec, ca_rec, ssd_rec):
             "cannot see a dropped carry")
 
     fp32 = {}
-    for name, impls in (("kernel", {}), ("chunked", {"attn_impl": "chunked"})):
-        reset_launches()
+    for name, impls, want_f in (("kernel", {}, want),
+                                ("chunked", {"attn_impl": "chunked"}, want_c)):
+        build.launches.clear()
         run = Model(dataclasses.replace(cfg32, **impls)).prefill(
             p32, batch, CACHE_LEN)
-        launches[f"fp32 {name}"] = launch_counts()
-        require_pointwise(f"zamba2 fp32 {name} prefill", pointwise_want(0))
+        launches[f"fp32 {name}"] = require_launches(
+            f"zamba2 fp32 {name} prefill", {**want_f, **pointwise_want(0)})
         fp32[name] = prefill_errs(*run, *truth, s)
         del run
-    require(launches["fp32 kernel"] == want
-            and launches["fp32 chunked"] == want_c,
-            f"fp32 prefill launches {launches}")
     with ssd_dropped_carry():
         fp32["control"] = prefill_errs(*Model(dataclasses.replace(
             cfg32, attn_impl="xla_flash", ssd_impl="blocked")).prefill(
@@ -2560,11 +2531,11 @@ def update_errs(what: str, state, args) -> dict:
     (``ssd_decode_step`` on a copy): one launch, counted from zero, the
     state bit for bit and y within ``ZI_UPDATE_Y_REL`` relative L2."""
     want_y, want_s = ssd_decode_step(state, *args)
-    reset_launches()
+    build.launches.clear()
     y = sd.ssd_decode_update(state, *args)
     errs = {"state_equal": bool(torch.equal(state, want_s)),
             "y_rel_l2": float((y - want_y).norm() / want_y.norm()),
-            "launches": sd.launches}
+            "launches": build.launches["ssd_decode"]}
     require(errs["state_equal"] and errs["y_rel_l2"] <= ZI_UPDATE_Y_REL
             and errs["launches"] == 1,
             f"{what}: decode update kernel against the plain ops: {errs}")
@@ -2690,20 +2661,17 @@ def phase_zamba2_instruct(gen, peaks) -> dict:
     batch = {"tokens": tokens}
     model.prefill(params, batch, ZI_PREFILL[1])             # warm-up
     torch.cuda.synchronize()
-    reset_launches()
+    build.launches.clear()
     t0 = time.perf_counter()
     with torch.no_grad():
         hidden = model.forward(params, batch)
     torch.cuda.synchronize()
     forward_s = time.perf_counter() - t0
     napp = len(cfg.hybrid_layer_ids)
-    want = {"ssd_scan": cfg.n_layers, "flash_attention": napp,
-            "chunked_attention": 0, "ssd_decode": 0}
-    require(launch_counts() == want,
-            f"zamba2-7b-instruct launches {launch_counts()}, want {want}")
-    pointwise = require_pointwise("zamba2-7b-instruct forward", {
-        "rms_norm": 2 * napp, "add_rms_norm": 0, "rope_qk": napp,
-        "swiglu_gate": 0})
+    launches = require_launches("zamba2-7b-instruct forward", {
+        "ssd_scan": cfg.n_layers, "flash_attention": napp,
+        "chunked_attention": 0, "ssd_decode": 0, "rms_norm": 2 * napp,
+        "add_rms_norm": 0, "rope_qk": napp, "swiglu_gate": 0})
     plain_model = Model(dataclasses.replace(cfg, attn_impl="xla_flash",
                                             ssd_impl="blocked"))
     with torch.no_grad(), plain_pointwise():
@@ -2739,16 +2707,16 @@ def phase_zamba2_instruct(gen, peaks) -> dict:
     cache["pos"].fill_(pos)
     tok = torch.randint(0, cfg.vocab, (lanes,), generator=gen,
                         device=DEVICE, dtype=torch.int32)
-    reset_launches()
+    build.launches.clear()
     model.decode_step(params, cache, tok)                   # warm-up
-    update_launches = sd.launches
+    update_launches = build.launches["ssd_decode"]
     require(update_launches == cfg.n_layers,
             f"{update_launches} decode update launches in a step, want "
             f"{cfg.n_layers}")
     decode = _profile(lambda: model.decode_step(params, cache, tok))
     decode_ranges = range_ms(lambda: model.decode_step(params, cache, tok))
-    log(phase="zamba2_instruct", forward_s=forward_s, launches=want,
-        pointwise=pointwise, kernel_path=kernel_err, plain_path=plain_err,
+    log(phase="zamba2_instruct", forward_s=forward_s, launches=launches,
+        kernel_path=kernel_err, plain_path=plain_err,
         prefill_ranges_ms=prefill_ranges, decode_step=decode,
         decode_ranges_ms=decode_ranges,
         update_launches_a_step=update_launches,
@@ -2839,37 +2807,30 @@ def phase_gemma_prefill(gen, fa_rec, ca_rec):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    reset_launches()
+    build.launches.clear()
     t0 = time.perf_counter()
     cache, last = model.prefill(params, batch, CACHE_LEN)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_peak = torch.cuda.max_memory_allocated()
-    launches = {"kernel": launch_counts()}
     want = {"ssd_scan": 0, "flash_attention": cfg.n_layers,
             "chunked_attention": 0, "ssd_decode": 0}
-    require(launches["kernel"] == want,
-            f"gemma3 prefill launches {launches['kernel']}, want {want}")
-    launches["kernel pointwise"] = require_pointwise(
-        "gemma3 prefill", pointwise_want(cfg.n_layers))
+    launches = {"kernel": require_launches(
+        "gemma3 prefill", {**want, **pointwise_want(cfg.n_layers)})}
     require(last.shape == (b, cfg.d_model) and torch.isfinite(last).all(),
             "last hidden state shape or finiteness")
     require(cache["k_local"].shape[-3] == GEMMA_WINDOW < s,
             "the windowed layers' caches must roll")
 
     chunked = Model(dataclasses.replace(cfg, attn_impl="chunked"))
-    reset_launches()
+    build.launches.clear()
     t0 = time.perf_counter()
     runs = {"chunked": chunked.prefill(params, batch, CACHE_LEN)}
     torch.cuda.synchronize()
     chunked_s = time.perf_counter() - t0
-    launches["chunked"] = launch_counts()
     want_c = dict(want, flash_attention=0, chunked_attention=cfg.n_layers)
-    require(launches["chunked"] == want_c,
-            f"gemma3 chunked prefill launches {launches['chunked']}, "
-            f"want {want_c}")
-    launches["chunked pointwise"] = require_pointwise(
-        "gemma3 chunked prefill", pointwise_want(cfg.n_layers))
+    launches["chunked"] = require_launches(
+        "gemma3 chunked prefill", {**want_c, **pointwise_want(cfg.n_layers)})
     runs["kernel"] = (cache, last)
     plain = Model(dataclasses.replace(cfg, attn_impl="xla_flash"))
     with plain_pointwise():
@@ -3229,23 +3190,20 @@ def phase_moe_vlm_prefill(gen, cfg, model, params, info, fa_rec, ca_rec):
     torch.cuda.reset_peak_memory_stats()
 
     routes = {"main": [], "plain": []}
-    reset_launches()
+    build.launches.clear()
     t0 = time.perf_counter()
     with routing(record=routes["main"]):
         cache, last = model.prefill(params, batch, CACHE_LEN)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_peak = torch.cuda.max_memory_allocated()
-    launches = {"kernel": launch_counts()}
     want = {"ssd_scan": 0, "flash_attention": cfg.n_layers,
             "chunked_attention": 0, "ssd_decode": 0}
-    require(launches["kernel"] == want,
-            f"{cfg.name} prefill launches {launches['kernel']}, want {want}")
     # a dense SwiGLU beside the experts only with ``dense_residual``
     want_pw = pointwise_want(cfg.n_layers, gates=cfg.n_layers if cfg.kind
                              != "moe" or cfg.moe.dense_residual else 0)
-    launches["kernel pointwise"] = require_pointwise(
-        f"{cfg.name} prefill", want_pw)
+    launches = {"kernel": require_launches(f"{cfg.name} prefill",
+                                           {**want, **want_pw})}
     require(last.shape == (b, cfg.d_model) and torch.isfinite(last).all(),
             "last hidden state shape or finiteness")
 
@@ -3260,19 +3218,15 @@ def phase_moe_vlm_prefill(gen, cfg, model, params, info, fa_rec, ca_rec):
     with routing(replay=replay):
         runs["kernel"] = forward_with_cache(model, params, batch)
     chunked = Model(dataclasses.replace(cfg, attn_impl="chunked"))
-    reset_launches()
+    build.launches.clear()
     t0 = time.perf_counter()
     with routing(replay=replay):
         runs["chunked"] = forward_with_cache(chunked, params, batch)
     torch.cuda.synchronize()
     chunked_s = time.perf_counter() - t0
-    launches["chunked"] = launch_counts()
     want_c = dict(want, flash_attention=0, chunked_attention=cfg.n_layers)
-    require(launches["chunked"] == want_c,
-            f"{cfg.name} chunked prefill launches {launches['chunked']}, "
-            f"want {want_c}")
-    launches["chunked pointwise"] = require_pointwise(
-        f"{cfg.name} chunked prefill", want_pw)
+    launches["chunked"] = require_launches(f"{cfg.name} chunked prefill",
+                                           {**want_c, **want_pw})
     controls = ["control_mask_one_ahead"]
     with plain_pointwise():
         with routing(replay=replay), causal_mask_one_ahead():
@@ -3509,42 +3463,35 @@ def phase_whisper_prefill(gen, fa_rec, ca_rec):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    reset_launches()
+    build.launches.clear()
     t0 = time.perf_counter()
     cache, last = model.prefill(params, batch, WHISPER_CACHE_LEN)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_peak = torch.cuda.max_memory_allocated()
-    launches = {"kernel": launch_counts()}
     n_attn = cfg.n_enc_layers + 2 * cfg.n_layers
     want = {"ssd_scan": 0, "flash_attention": n_attn,
             "chunked_attention": 0, "ssd_decode": 0}
-    require(launches["kernel"] == want,
-            f"whisper prefill launches {launches['kernel']}, want {want}")
     # an encoder layer: two norms and a gate; a decoder layer: norms before
     # self-attention, cross-attention and the MLP, RoPE and a gate; no
     # fused add (the decoder's cross-attention sits between the two)
     enc, dec = cfg.n_enc_layers, cfg.n_layers
     want_pw = {"rms_norm": 2 * enc + 3 * dec, "add_rms_norm": 0,
                "rope_qk": dec, "swiglu_gate": enc + dec}
-    launches["kernel pointwise"] = require_pointwise("whisper prefill",
-                                                     want_pw)
+    launches = {"kernel": require_launches("whisper prefill",
+                                           {**want, **want_pw})}
     require(last.shape == (b, cfg.d_model) and torch.isfinite(last).all(),
             "last hidden state shape or finiteness")
 
     chunked = Model(dataclasses.replace(cfg, attn_impl="chunked"))
-    reset_launches()
+    build.launches.clear()
     t0 = time.perf_counter()
     runs = {"chunked": chunked.prefill(params, batch, WHISPER_CACHE_LEN)}
     torch.cuda.synchronize()
     chunked_s = time.perf_counter() - t0
-    launches["chunked"] = launch_counts()
     want_c = dict(want, flash_attention=0, chunked_attention=n_attn)
-    require(launches["chunked"] == want_c,
-            f"whisper chunked prefill launches {launches['chunked']}, "
-            f"want {want_c}")
-    launches["chunked pointwise"] = require_pointwise(
-        "whisper chunked prefill", want_pw)
+    launches["chunked"] = require_launches("whisper chunked prefill",
+                                           {**want_c, **want_pw})
     runs["kernel"] = (cache, last)
     plain = Model(dataclasses.replace(cfg, attn_impl="xla_flash"))
     with plain_pointwise():
@@ -3844,9 +3791,9 @@ def phase_train_grads(cfg, params, batch) -> dict:
                     "grad_rel_err": rel, "zero_grad_leaves": zero}
 
     model = Model(cfg)
-    reset_launches()
+    build.launches.clear()
     ok, kernel = gate(*loss_and_grads(model, params, batch))
-    kernel["flash_launches"] = fa.launches
+    kernel["flash_launches"] = build.launches["flash_attention"]
     require(ok, f"{cfg.name}: kernel loss and gradients against the plain "
             f"attention's: {kernel}")
     with attention_detached():
@@ -3868,7 +3815,7 @@ def run_steps(step_fn, state, data, first: int, last: int):
     for i in range(first, last):
         batch = device_batch(data, i)
         events = []
-        reset_launches()
+        build.launches.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with timed_attention_backward(events):
@@ -3877,9 +3824,8 @@ def run_steps(step_fn, state, data, first: int, last: int):
         secs.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
         norms.append((float(m["grad_norm"]), float(m["lr"])))
-        launches.append({"flash_attention": fa.launches,
-                         "chunked_attention": ca.launches,
-                         "ssd_scan": sk.launches})
+        launches.append({k: build.launches[k] for k in (
+            "flash_attention", "chunked_attention", "ssd_scan")})
         bwd_ms.append(sum(a.elapsed_time(b) for a, b in events))
     return state, losses, secs, launches, bwd_ms, norms
 
@@ -4070,11 +4016,11 @@ def phase_offset_kernels(gen, peaks, fa_rec, ca_rec) -> None:
             for name, fn in (("flash", fa.flash_attention_cuda),
                              ("chunked", ca.chunked_attention_cuda)):
                 whole = fn(q, k, v, causal=True, window=window)
-                reset_launches()
+                build.launches.clear()
                 parts = [fn(q[:, :, i * n:(i + 1) * n], k, v, causal=True,
                             window=window, q_offset=i * n)
                          for i in range(OFFSET_SLICES)]
-                count = launch_counts()[f"{name}_attention"]
+                count = build.launches[f"{name}_attention"]
                 require(count == OFFSET_SLICES,
                         f"{name} {case}: {count} launches for "
                         f"{OFFSET_SLICES} slices")
@@ -4169,12 +4115,13 @@ def mesh_phi3(gen, mesh, fa_rec) -> None:
 
     def timed_prefill(p):
         model.prefill(p, batch, CACHE_LEN)           # warm-up
-        reset_launches()
+        build.launches.clear()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         cache, last = model.prefill(p, batch, CACHE_LEN)
         torch.cuda.synchronize()
-        return cache, last, time.perf_counter() - t1, fa.launches
+        return (cache, last, time.perf_counter() - t1,
+                build.launches["flash_attention"])
 
     # the no-mesh prefill with the plain pointwise ops, as the mesh's
     # DTensors take them: the same ops on both sides of the gates
@@ -4282,9 +4229,9 @@ def mesh_zamba(gen, mesh) -> None:
         y0, (_, s0) = ssm.mamba_block(lp, h, cfg.ssm, use_kernel=True)
         with use_ctx(mesh):
             lpd = {k: rules.distribute(v, axes[k]) for k, v in lp.items()}
-            reset_launches()
+            build.launches.clear()
             y1, (_, s1) = ssm.mamba_block(lpd, h, cfg.ssm, use_kernel=True)
-            launches = sk.launches
+            launches = build.launches["ssd_scan"]
     y_rel, s_rel = rel_max(whole(y1), y0), rel_max(whole(s1), s0)
     require(launches == 1, f"mesh Mamba2 block: {launches} SSD launches")
     require(y_rel <= SSD_Y_REL_TOL and s_rel <= SSD_STATE_REL_TOL,
@@ -4314,14 +4261,14 @@ def mesh_stablelm(gen, mesh) -> None:
         pd = train_step_lib.distribute_state(params, axes["params"])
         acc = train_step_lib.shardings_of(
             pd, train_step_lib.grad_accum_axes(model))
-        reset_launches()
+        build.launches.clear()
         live = tree_map(lambda t: t.detach().requires_grad_(), pd)
         mloss = model.loss(live, batch)
         grads = torch.autograd.grad(mloss, tree_leaves(live),
                                     allow_unused=True, materialize_grads=True)
         loss = float(whole(mloss.detach()))
         grads = train_step_lib._constrain(list(grads), tree_leaves(acc))
-        launches = fa.launches
+        launches = build.launches["flash_attention"]
         grads = [whole(g) for g in grads]
     rel = {n: float((g.float() - q.float()).norm()) / max(nm, 1e-30)
            for n, g, q, nm in zip(names, grads, plain, norms)}
@@ -4421,7 +4368,7 @@ def main(argv=None) -> int:
     usage = phase_build()
     fa_rec = phase_kernel(gen, added, peaks)
     phase_pointwise(peaks)
-    reset_launches()
+    build.launches.clear()
     cfg, model, params, cache, last = phase_prefill(gen, fa_rec)
     phase_decode(cfg, model, params, cache, last, PHI3_ATTN[3])
     del cache

@@ -15,9 +15,8 @@ and ``ssd_ref`` with XLA's autodiff, outside any Pallas kernel.
   - SSD scan: the chunked plain ``models.ssm.ssd_ref`` recomputed under
     ``torch.enable_grad()`` and differentiated by ``torch.autograd.grad``;
     the initial state and the returned state keep their gradients.
-Neither backward launches a kernel, so a wrapper's ``launches`` counts
-forward launches only (with per-layer remat, the forward and its
-recompute).
+Neither backward launches a kernel, so ``build.launches`` counts forward
+launches only (with per-layer remat, the forward and its recompute).
 """
 from __future__ import annotations
 

@@ -9,10 +9,18 @@ PyTorch's headers; ninja compiles the sources in parallel. The build
 runs at first use, into ``build/kernels`` at the root of the checkout
 (listed in ``.gitignore``), and is cached there by content. A failed
 build raises; nothing falls back to the plain versions.
+
+It is also the seam every wrapper shares: which device a call runs on
+(:func:`all_cpu`, :func:`check_cuda`), whether the model routes a call to
+a kernel (:func:`route`), and the one count of launches (``launches``).
 """
 from __future__ import annotations
 
+from collections import Counter
 from pathlib import Path
+
+from repro_torch.kernels.autograd import needs_grad
+from repro_torch.sharding import rules
 
 HERE = Path(__file__).resolve().parent
 BUILD_DIR = HERE.parents[2] / "build" / "kernels"
@@ -27,6 +35,13 @@ CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
 
 
 _extension = None
+
+# launches by kernel: +1 for each wrapper call that launched, however
+# many CUDA kernels it runs; nothing on the CPU path, on a raise or in a
+# backward. Keys: flash_attention, chunked_attention, ssd_scan, ssd_decode,
+# rms_norm, add_rms_norm, rope_qk, swiglu_gate. A reader clears it and
+# reads it by key.
+launches: Counter[str] = Counter()
 
 
 def extension(verbose: bool = False):
@@ -61,3 +76,15 @@ def check_cuda(name, *tensors):
         raise ValueError(
             f"{name} takes CPU tensors (plain version) or CUDA tensors "
             f"(kernel), got {', '.join(str(t.device) for t in tensors)}")
+
+
+def route(takes, *args, params=()) -> bool:
+    """Whether the model hands a call to a kernel, decided from what it is
+    given: no DTensor among ``args`` and ``params`` (an extension takes
+    none, and ``takes`` is not written for them), then the kernel's own
+    ``takes(*args)``, then autograd records none of them (training keeps
+    the plain ops and their gradients). The CPU, the mesh, training and
+    what a kernel does not take keep the plain ops."""
+    given = (*args, *params)
+    return not any(rules.is_dtensor(t) for t in given) and takes(*args) \
+        and not needs_grad(*given)

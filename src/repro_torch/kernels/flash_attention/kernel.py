@@ -5,12 +5,13 @@
 CPU tensors go to the plain version (``ref.attention_kernel_ref``: a row
 that sees no key gives 0, as in the kernel); CUDA tensors launch the
 kernel or raise. The kernel runs bf16 on the tensor cores (``wgmma``) and
-fp32 on the CUDA cores, one entry point for both; ``launches`` counts the
-kernel's launches. Under autograd the call goes through
-``autograd.AttentionFunction`` (plain backward, no launch).
+fp32 on the CUDA cores, one entry point for both; ``build.launches``
+counts its launches under ``"flash_attention"``. Under autograd the call
+goes through ``autograd.AttentionFunction`` (plain backward, no launch).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -26,8 +27,6 @@ from repro_torch.kernels.flash_attention.ref import attention_kernel_ref
 HEAD_DIMS = (32, 64, 80, 112, 128, 224, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_GRID_YZ = 65535
-
-launches = 0
 
 
 def check_args(q, k, v, window, q_offset=0):
@@ -80,22 +79,25 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, q_offset=0,
     return _flash_fwd(q, k, v, causal, window, q_offset, scale)
 
 
-def _flash_fwd(q, k, v, causal, window, q_offset=0, scale=None):
-    """The forward: the plain version for CPU tensors, else the kernel;
-    the scores scaled by ``scale`` (default 1 / sqrt(D))."""
+def attention_fwd(key, q, k, v, causal, window, q_offset=0, scale=None):
+    """The forward of both attention kernels, ``key`` naming which:
+    ``"flash_attention"`` or ``"chunked_attention"``, its wrapper
+    ``<key>_cuda``, its extension entry ``<key>_fwd`` and its count in
+    ``build.launches``. The plain version for CPU tensors, else the
+    kernel; the scores scaled by ``scale`` (default 1 / sqrt(D))."""
     if build.all_cpu(q, k, v):
         return attention_kernel_ref(q, k, v, causal=causal, window=window,
                                     q_offset=q_offset, scale=scale)
-    build.check_cuda("flash_attention_cuda", q, k, v)
+    build.check_cuda(f"{key}_cuda", q, k, v)
     check_args(q, k, v, window, q_offset)
-    global launches
     b, hq, sq, d = q.shape
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     ot = out.transpose(1, 2)
-    build.extension().flash_attention_fwd(q, k, v, ot, bool(causal),
-                                          int(window),
-                                          1.0 / math.sqrt(d) if scale is None
-                                          else float(scale),
-                                          int(q_offset))
-    launches += 1
+    getattr(build.extension(), f"{key}_fwd")(
+        q, k, v, ot, bool(causal), int(window),
+        1.0 / math.sqrt(d) if scale is None else float(scale), int(q_offset))
+    build.launches[key] += 1
     return ot
+
+
+_flash_fwd = functools.partial(attention_fwd, "flash_attention")

@@ -5,11 +5,12 @@ RMSNorm, RoPE on q and k, and SwiGLU's gate.
 They replace no TPU kernel: the reference's plain ops
 (``models/layers.py``), which XLA fuses, run here in one pass each over
 bf16, with no fp32 copy in device memory. CPU tensors go to the plain ops;
-CUDA bf16 tensors launch the kernel or raise. ``launches`` counts each
-kernel's launches. The model takes them only where :func:`takes` holds and
-the sequence has more than one position and autograd is not recording
-(``models/transformer.py``): training keeps the plain ops and their
-gradients, the decode step its present ops.
+CUDA bf16 tensors launch the kernel or raise. ``build.launches`` counts
+each kernel's launches under its wrapper's name less ``_cuda``. The model
+takes them only where ``models.transformer.fused_route`` holds
+(``build.route`` with :func:`takes`, and more than one position):
+training keeps the plain ops and their gradients, the decode step its
+present ops.
 """
 from __future__ import annotations
 
@@ -23,8 +24,6 @@ VEC = 8                 # bf16 values in one of the kernels' 16-byte accesses
 MAX_D = 16384           # the widest row the norm holds in registers
 SCALE_DTYPES = (torch.bfloat16, torch.float32)
 MAX_GRID_X = 2 ** 31 - 1
-
-launches = {"rms_norm": 0, "add_rms_norm": 0, "rope_qk": 0, "swiglu_gate": 0}
 
 
 def takes(x: torch.Tensor) -> bool:
@@ -121,7 +120,7 @@ def rms_norm_cuda(x, scale, eps=1e-6):
     h = torch.empty_like(x)
     empty = x.new_empty(0)
     build.extension().rms_norm_fwd(x, empty, empty, h, scale, float(eps))
-    launches["rms_norm"] += 1
+    build.launches["rms_norm"] += 1
     return h
 
 
@@ -136,7 +135,7 @@ def add_rms_norm_cuda(x, y, scale, eps=1e-6):
     check_norm_args(x, scale, y)
     s, h = torch.empty_like(x), torch.empty_like(x)
     build.extension().rms_norm_fwd(x, y, s, h, scale, float(eps))
-    launches["add_rms_norm"] += 1
+    build.launches["add_rms_norm"] += 1
     return s, h
 
 
@@ -149,7 +148,7 @@ def rope_qk_cuda(q, k, sin, cos):
     build.check_cuda("rope_qk_cuda", q, k, sin, cos)
     check_rope_args(q, k, sin, cos)
     build.extension().rope_qk_fwd(q, k, sin, cos)
-    launches["rope_qk"] += 1
+    build.launches["rope_qk"] += 1
     return q, k
 
 
@@ -162,5 +161,5 @@ def swiglu_gate_cuda(g, u):
     check_swiglu_args(g, u)
     out = torch.empty_like(g)
     build.extension().swiglu_gate_fwd(g, u, out)
-    launches["swiglu_gate"] += 1
+    build.launches["swiglu_gate"] += 1
     return out

@@ -7,10 +7,11 @@ It replaces no TPU kernel: the reference's decode update is plain JAX
 bytes, read once and written once; the source says how its design meets
 that bound. CPU tensors go to the plain version (``ref.ssd_decode_step``,
 its new state written back into the given one); CUDA tensors launch the
-kernel or raise. ``launches`` counts launches. The model takes it where
-``models.ssm.decode_route`` holds: arguments the kernel takes
-(:func:`takes`, one definition with the checks), no DTensor, nothing
-autograd records.
+kernel or raise. ``build.launches`` counts its launches under
+``"ssd_decode"``. The model takes it where ``models.ssm.decode_route``
+holds (``build.route``: no DTensor, then arguments the kernel takes,
+:func:`takes`, one definition with the checks, then nothing autograd
+records).
 """
 from __future__ import annotations
 
@@ -23,8 +24,6 @@ DTYPES = (torch.float32, torch.bfloat16)
 NS = (16, 64, 128)      # the state dims the kernel is built for: the
                         # smoke configs', zamba2's, mamba2-1.3b's
 MAX_GRID_X = 2 ** 31 - 1
-
-launches = 0
 
 
 def refusal(state, x, dt, a, bmat, cmat) -> str | None:
@@ -94,11 +93,10 @@ def ssd_decode_update(state, x, dt, a, bmat, cmat):
         return y
     build.check_cuda("ssd_decode_update", state, x, dt, a, bmat, cmat)
     check_args(state, x, dt, a, bmat, cmat)
-    global launches
     if bmat.dim() == 2:              # one group
         bmat, cmat = bmat.unsqueeze(1), cmat.unsqueeze(1)
     y = torch.empty(state.shape[:3], dtype=torch.float32,
                     device=state.device)
     build.extension().ssd_decode_update(state, y, x, dt, a, bmat, cmat)
-    launches += 1
+    build.launches["ssd_decode"] += 1
     return y

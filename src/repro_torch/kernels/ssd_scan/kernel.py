@@ -5,8 +5,9 @@ CPU tensors go to the plain version (``ref.ssd_ref_sequential``); CUDA
 tensors launch the kernel or raise. bf16 runs four chunk-parallel CUDA
 kernels on the tensor cores (chunk cumsums, chunk states, the scan over
 chunks, outputs), for which the wrapper allocates the scratch; fp32 runs
-one kernel on the CUDA cores. ``launches`` counts calls that launched,
-one per call however many CUDA kernels it runs. Unlike ``ssd_tpu`` the
+one kernel on the CUDA cores. ``build.launches`` counts calls that
+launched under ``"ssd_scan"``, one per call however many CUDA kernels it
+runs. Unlike ``ssd_tpu`` the
 wrapper neither pads L nor transposes: the kernels mask the ragged last
 chunk and read every input through its strides (only the last dim of
 each must be contiguous). Under autograd the call goes through
@@ -24,8 +25,6 @@ from repro_torch.kernels.ssd_scan.ref import ssd_ref_sequential
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 4096
 MAX_GRID_Y = 65535
-
-launches = 0
 
 
 def check_args(x, dt, a, bmat, cmat, chunk, init_state=None):
@@ -94,7 +93,6 @@ def _ssd_fwd(x, dt, a, bmat, cmat, chunk, init_state):
         return ssd_ref_sequential(x, dt, a, bmat, cmat, init_state)
     build.check_cuda("ssd_cuda", *inputs)
     check_args(x, dt, a, bmat, cmat, chunk, init_state)
-    global launches
     b, l, h, p = x.shape
     n = bmat.shape[-1]
     if bmat.dim() == 3:              # one group
@@ -119,5 +117,5 @@ def _ssd_fwd(x, dt, a, bmat, cmat, chunk, init_state):
         keys = cstate = prev = none
     build.extension().ssd_scan_fwd(x, dt, a, bmat, cmat, y, state, init,
                                    keys, cstate, prev, q)
-    launches += 1
+    build.launches["ssd_scan"] += 1
     return y, state

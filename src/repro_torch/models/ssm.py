@@ -35,7 +35,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.autograd import needs_grad
+from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan import decode as sd
 from repro_torch.kernels.ssd_scan.kernel import ssd_cuda
 from repro_torch.kernels.ssd_scan.ref import ssd_decode_step
@@ -106,15 +106,10 @@ def ssd_ref(x, dt, A, B, C, chunk: int = 128, init_state=None):
 
 def decode_route(state, x_t, *inputs) -> bool:
     """Whether the decode update of ``state`` (B, H, P, N) takes the
-    kernel, decided once a call from what it is given: neither the state
-    nor x_t is a DTensor, the kernel takes the arguments (``decode.takes``,
-    the same definition its argument checks raise from: a CUDA fp32
-    contiguous state of a state dim it is built for, and the rest), and
-    autograd records none of them. The CPU, the mesh path, training and
-    other shapes keep the plain ops."""
-    return not rules.is_dtensor(state) and not rules.is_dtensor(x_t) \
-        and sd.takes(state, x_t, *inputs) \
-        and not needs_grad(state, x_t, *inputs)
+    kernel: ``build.route`` with ``decode.takes`` (the same definition the
+    kernel's argument checks raise from: a CUDA fp32 contiguous state of a
+    state dim it is built for, and the rest)."""
+    return build.route(sd.takes, state, x_t, *inputs)
 
 
 def causal_conv(x, w, cache=None, bias=None):

@@ -76,7 +76,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.autograd import needs_grad
+from repro_torch.kernels import build
 from repro_torch.kernels.pointwise import kernel as pw
 from repro_torch.models import embedloss
 from repro_torch.models.attention import context_attention, decode_attention
@@ -128,6 +128,12 @@ LEAF_AXES = {
     "adapter": ("embed", None), "adapter_gate": (None, "ff"),
     "adapter_up": (None, "ff"), "w_link": ("embed", None),
 }
+# logical axes of each decode-cache leaf without its stack dims, by its
+# name up to the first "_" (``k_local``, ``state_tail``, ``k_cross`` ...)
+_KV_AXES = ("batch", "kv_seq", None, None)
+CACHE_LEAF_AXES = {"pos": ("batch",), "k": _KV_AXES, "v": _KV_AXES,
+                   "conv": ("batch", None, "ff"),
+                   "state": ("batch", "q_heads", None, None)}
 
 
 def _dt(name: str) -> torch.dtype:
@@ -813,40 +819,11 @@ class Model(nn.Module):
         return cache
 
     def cache_axes(self):
-        """Logical axes of the cache leaves (where the batch axis is)."""
-        c = self.cfg
-        kv = (None, "batch", "kv_seq", None, None)
-        ax: dict[str, Any] = {"pos": ("batch",)}
-        if c.window > 0:
-            local = (None, None, "batch", "kv_seq", None, None)
-            ax["k_local"] = local
-            ax["v_local"] = local
-            ax["k_global"] = kv
-            ax["v_global"] = kv
-            if self.n_tail:
-                ax["k_tail"] = kv
-                ax["v_tail"] = kv
-        elif c.kind in DENSE_KINDS:
-            ax["k"] = kv
-            ax["v"] = kv
-        elif c.kind in ENCDEC_KINDS:
-            for key in ("k_self", "v_self", "k_cross", "v_cross"):
-                ax[key] = kv
-        elif c.kind == "ssm" or c.zyphra:
-            ax["conv"] = (None, "batch", None, "ff")
-            ax["state"] = (None, "batch", "q_heads", None, None)
-            if c.zyphra:
-                ax["k_shared"] = kv
-                ax["v_shared"] = kv
-        else:
-            ax["conv"] = (None, None, "batch", None, "ff")
-            ax["state"] = (None, None, "batch", "q_heads", None, None)
-            if self.n_tail:
-                ax["conv_tail"] = (None, "batch", None, "ff")
-                ax["state_tail"] = (None, "batch", "q_heads", None, None)
-            ax["k_shared"] = kv
-            ax["v_shared"] = kv
-        return ax
+        """Logical axes of the cache leaves (where the batch axis is),
+        derived from :meth:`_zero_cache`'s leaves as :meth:`param_axes` is
+        from the parameters: a leaf's stack dims are None."""
+        return {name: _cache_leaf_axes(name, leaf) for name, leaf in
+                self._zero_cache(1, 1, torch.device("meta")).items()}
 
     def reset_cache_lane(self, cache, slot):
         """Zero one batch lane of a decode cache in place (``pos[slot] = 0``
@@ -858,11 +835,11 @@ class Model(nn.Module):
         reference's). ``slot`` is an int, or a (1,) int64 index tensor on
         the cache's device, which spares the call its one host-to-device
         copy (the serving engine makes one per slot up front)."""
-        axes = self.cache_axes()
         idx = slot if isinstance(slot, torch.Tensor) else torch.tensor(
             [slot], device=cache["pos"].device)
         for key, val in cache.items():
-            val.index_fill_(axes[key].index("batch"), idx, 0)
+            val.index_fill_(_cache_leaf_axes(key, val).index("batch"), idx,
+                            0)
         return cache
 
     def _attn_decode(self, p, x, cache_kv, pos, rolling=False, cross=False,
@@ -956,15 +933,20 @@ class Model(nn.Module):
 
 def fused_route(x: torch.Tensor, p: dict[str, torch.Tensor]) -> bool:
     """Whether a layer's pointwise ops take the fused kernels
-    (``kernels/pointwise``), decided once a layer: its input x (B, S, D) is
-    a tensor the kernels take (``pw.takes``: CUDA bf16; not a DTensor),
-    S > 1, and autograd records neither x nor the layer's parameters ``p``
-    (training keeps the plain ops and their gradients). The decode step's
-    (B, 1, D) calls keep the plain ops. Which kernels a route takes is the
-    block's to say: a dense block all four, Zyphra's shared block only the
-    norms and RoPE (``Model._zamba_block``)."""
-    return x.shape[1] > 1 and pw.takes(x) and not rules.is_dtensor(x) \
-        and not needs_grad(x, *p.values())
+    (``kernels/pointwise``), decided once a layer: S > 1 (the decode
+    step's (B, 1, D) calls keep the plain ops), then ``build.route`` over
+    the layer's input x (B, S, D) with ``pw.takes`` (CUDA bf16) and its
+    parameters ``p``. Which kernels a route takes is the block's to say: a
+    dense block all four, Zyphra's shared block only the norms and RoPE
+    (``Model._zamba_block``)."""
+    return x.shape[1] > 1 and build.route(pw.takes, x, params=p.values())
+
+
+def _cache_leaf_axes(name: str, leaf: torch.Tensor) -> tuple:
+    """A decode-cache leaf's logical axes: None for each stack dim, then
+    its base axes (``CACHE_LEAF_AXES``)."""
+    base = CACHE_LEAF_AXES[name.split("_")[0]]
+    return (None,) * (leaf.dim() - len(base)) + base
 
 
 def _norm(x, scale, eps, fused):

@@ -42,7 +42,7 @@ import torch
 
 from repro_torch.models import embedloss
 from repro_torch.models.layers import rms_norm, rope_table
-from repro_torch.models.transformer import DENSE_KINDS, Model, fused_route
+from repro_torch.models.transformer import DENSE_KINDS, Model
 
 # plan variant name -> ``ModelConfig.attn_impl`` (the non-base variants of
 # ``kernels/registry.py``'s flash_attention family); "base" keeps the
@@ -156,10 +156,8 @@ def model_stage_builder(model: Model, params, names, *, device,
 
 def _layer(model: Model, layer, x: torch.Tensor, rope) -> torch.Tensor:
     """One attention block of ``model._layers`` on the hidden state ``x``
-    (B, S, D), as ``Model.forward`` runs it without a cache; ``rope(S)``
-    gives the (sin, cos) tables."""
-    _, p, _, window, _ = layer
-    sin, cos = rope(x.shape[1])
-    fused = fused_route(x, p)
-    y, _ = model._attn_branch(p, x, sin, cos, window, fused)
-    return model._ffn(p, x, y, fused)
+    (B, S, D): ``Model._layer`` with no cache views, as ``Model.forward``
+    runs it without a cache; ``rope(S)`` gives the (sin, cos) tables."""
+    kind, p, _, window, rolling = layer
+    return model._layer(kind, p, None, window, rolling, x,
+                        *rope(x.shape[1]), None)

@@ -13,6 +13,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention.chunked import chunked_attention_tpu  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import chunked  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
@@ -52,13 +53,13 @@ def test_chunked_wrapper_on_cpu_matches_pallas_interpret(case):
     b, hq, hkv, sq, skv, d, causal, window, bq, bk = case
     arrs = _qkv(7, b, hq, hkv, sq, skv, d)
     q, k, v = (torch.from_numpy(a) for a in arrs)
-    before = chunked.launches
+    before = build.launches["chunked_attention"]
     out = chunked.chunked_attention_cuda(q, k, v, causal=causal,
                                          window=window)
     ref = chunked_attention_tpu(*(jnp.asarray(a) for a in arrs),
                                 causal=causal, window=window, bq=bq, bk=bk,
                                 interpret=True)
-    assert chunked.launches == before
+    assert build.launches["chunked_attention"] == before
     assert out.shape == (b, hq, sq, d)
     assert _err(out, ref) < 2e-5
 

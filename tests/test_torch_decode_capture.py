@@ -155,11 +155,21 @@ def test_decode_step_op_sequence_is_static(family):
         assert ops == first, when
 
 
-@pytest.mark.parametrize("arch", list(FAMILIES.values()))
+# the cache axes of the one config with no reference to hold them against,
+# written out
+KV_AXES = (None, "batch", "kv_seq", None, None)
+WRITTEN_AXES = {"zamba2-7b-instruct": {
+    "pos": ("batch",), "conv": (None, "batch", None, "ff"),
+    "state": (None, "batch", "q_heads", None, None),
+    "k_shared": KV_AXES, "v_shared": KV_AXES}}
+
+
+@pytest.mark.parametrize("arch", list(FAMILIES.values()) + list(WRITTEN_AXES))
 def test_lane_reset_by_index_tensor_is_a_device_op(arch):
     """``reset_cache_lane`` with a (1,) index tensor (the engine's on CUDA)
     makes no tensor from host data, wipes every leaf's lane to what
-    ``init_cache`` makes, and leaves the other lane as it was."""
+    ``init_cache`` makes, and leaves the other lane as it was; the cache
+    axes are the written-out ones where a config has them."""
     model = Model(get_smoke_config(arch))
     params = model.init(0, device="cpu")
     cache = model.init_cache(B, CACHE, device="cpu")
@@ -177,6 +187,7 @@ def test_lane_reset_by_index_tensor_is_a_device_op(arch):
                                          "aten.select.int"}
     fresh = model.init_cache(B, CACHE, device="cpu")
     axes = model.cache_axes()
+    assert axes == WRITTEN_AXES.get(arch, axes)
     for key, leaf in cache.items():
         ax = axes[key].index("batch")
         assert torch.equal(leaf.select(ax, 0), fresh[key].select(ax, 0)), key

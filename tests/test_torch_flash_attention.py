@@ -20,6 +20,7 @@ from repro.kernels.flash_attention.chunked import chunked_attention_tpu  # noqa:
 from repro.kernels.flash_attention.kernel import flash_attention_tpu  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import chunked  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
@@ -112,11 +113,11 @@ def test_kernel_wrapper_on_cpu_matches_pallas_interpret(case):
     b, hq, hkv, sq, skv, d, causal, window, bq, bk = case
     (q, k, v), (jq, jk, jv) = _both(_qkv(4, b, hq, hkv, sq, skv, d),
                                     torch.float32, jnp.float32)
-    before = fa.launches
+    before = build.launches["flash_attention"]
     out = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
     ref = flash_attention_tpu(jq, jk, jv, causal=causal, window=window,
                               bq=bq, bk=bk, interpret=True)
-    assert fa.launches == before
+    assert build.launches["flash_attention"] == before
     assert _err(out, ref) < 2e-5
 
 

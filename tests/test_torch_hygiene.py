@@ -23,6 +23,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import chunked  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
 from repro_torch.kernels.pointwise import kernel as pw  # noqa: E402
+from repro_torch.kernels.ssd_scan import decode as sd  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
 from repro_torch.models.config import get_smoke_config  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
@@ -201,71 +202,46 @@ def test_entry_points_raise_without_cuda():
         launch_train.main(["--smoke", "--steps", "1"])
 
 
-def test_kernel_wrapper_raises_instead_of_falling_back():
-    """Tensors that are not all on the CPU never reach the plain version:
-    the wrapper launches the kernel or raises, and counts no launch."""
-    _needs_no_cuda()
-    before = fa.launches
-    q = torch.empty(1, 2, 8, 32, device="meta")
-    k = torch.empty(1, 2, 8, 32, device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        fa.flash_attention_cuda(q, k, k)
-    cpu = torch.zeros(1, 2, 8, 32)
-    with pytest.raises(ValueError, match="CUDA"):
-        fa.flash_attention_cuda(cpu, k, k)
-    assert fa.launches == before
-
-
-def _launch_count(name):
-    return {"flash": lambda: fa.launches,
-            "chunked": lambda: chunked.launches}.get(
-        name, lambda: pw.launches[name])()
-
-
-# each wrapper with its arguments' shapes: both attention wrappers at
-# zamba2's head dim, the fused pointwise wrappers at phi3's widths
+# each wrapper with its arguments' shapes and its key in ``build.launches``:
+# the flash wrapper at head dim 32, both attention wrappers at zamba2's
+# head dim, the SSD scan and the decode update at the smoke widths, the
+# fused pointwise wrappers at phi3's widths
 WRAPPER_CASES = {
-    "flash": (fa.flash_attention_cuda, [(1, 2, 8, 112)] * 3),
-    "chunked": (chunked.chunked_attention_cuda, [(1, 2, 8, 112)] * 3),
-    "rms_norm": (pw.rms_norm_cuda, [(1, 8, 5120), (5120,)]),
+    "flash_d32": (fa.flash_attention_cuda, [(1, 2, 8, 32)] * 3,
+                  "flash_attention"),
+    "flash": (fa.flash_attention_cuda, [(1, 2, 8, 112)] * 3,
+              "flash_attention"),
+    "chunked": (chunked.chunked_attention_cuda, [(1, 2, 8, 112)] * 3,
+                "chunked_attention"),
+    "ssd_scan": (sk.ssd_cuda, [(1, 8, 2, 16), (1, 8, 2), (2,), (1, 8, 8),
+                               (1, 8, 8)], "ssd_scan"),
+    "ssd_decode": (sd.ssd_decode_update, [(1, 2, 16, 16), (1, 2, 16),
+                                          (1, 2), (2,), (1, 16), (1, 16)],
+                   "ssd_decode"),
+    "rms_norm": (pw.rms_norm_cuda, [(1, 8, 5120), (5120,)], "rms_norm"),
     "add_rms_norm": (pw.add_rms_norm_cuda,
-                     [(1, 8, 5120), (1, 8, 5120), (5120,)]),
+                     [(1, 8, 5120), (1, 8, 5120), (5120,)], "add_rms_norm"),
     "rope_qk": (pw.rope_qk_cuda, [(1, 8, 40, 128), (1, 8, 10, 128),
-                                  (8, 64), (8, 64)]),
-    "swiglu_gate": (pw.swiglu_gate_cuda, [(1, 8, 17920)] * 2),
+                                  (8, 64), (8, 64)], "rope_qk"),
+    "swiglu_gate": (pw.swiglu_gate_cuda, [(1, 8, 17920)] * 2,
+                    "swiglu_gate"),
 }
 
 
 @pytest.mark.parametrize("name", list(WRAPPER_CASES))
 def test_attention_wrappers_raise_instead_of_falling_back(name):
-    """Both attention wrappers and the fused pointwise wrappers, on meta
-    tensors and on a CPU/meta mix: a raise, no launch, no plain
-    version."""
+    """Every kernel wrapper, on meta tensors and on a CPU/meta mix:
+    tensors that are not all on the CPU never reach the plain version; the
+    wrapper raises and counts no launch."""
     _needs_no_cuda()
-    wrapper, shapes = WRAPPER_CASES[name]
-    before = _launch_count(name)
+    wrapper, shapes, key = WRAPPER_CASES[name]
+    before = build.launches[key]
     meta = [torch.empty(*s, device="meta") for s in shapes]
     with pytest.raises(ValueError, match="CUDA"):
         wrapper(*meta)
     with pytest.raises(ValueError, match="CUDA"):
         wrapper(torch.zeros(shapes[0]), *meta[1:])
-    assert _launch_count(name) == before
-
-
-def test_ssd_wrapper_raises_instead_of_falling_back():
-    _needs_no_cuda()
-    before = sk.launches
-    b, l, h, p, n = 1, 8, 2, 16, 8
-    meta = dict(device="meta")
-    args = [torch.empty(b, l, h, p, **meta), torch.empty(b, l, h, **meta),
-            torch.empty(h, **meta), torch.empty(b, l, n, **meta),
-            torch.empty(b, l, n, **meta)]
-    with pytest.raises(ValueError, match="CUDA"):
-        sk.ssd_cuda(*args)
-    args[2] = torch.zeros(h)
-    with pytest.raises(ValueError, match="CUDA"):
-        sk.ssd_cuda(*args)
-    assert sk.launches == before
+    assert build.launches[key] == before
 
 
 def test_process_executor_raises_once_cuda_is_initialised(monkeypatch):

@@ -185,12 +185,13 @@ def fake_extension(monkeypatch):
 def test_cuda_branch_gives_attention_gradients(fake_extension, wrapper):
     c = FAKE_CASE
     q, k, v, do = _attn_inputs(c)
-    module = fa if wrapper == "flash" else ca
-    before = module.launches
+    key = f"{wrapper}_attention"
+    before = build.launches[key]
     o = WRAPPERS[wrapper](q, k, v, causal=c[6], window=c[7])
-    assert module.launches == before + 1 and fake_extension == ["attention"]
+    assert build.launches[key] == before + 1 \
+        and fake_extension == ["attention"]
     got = torch.autograd.grad(o, (q, k, v), do)
-    assert module.launches == before + 1      # the backward launches nothing
+    assert build.launches[key] == before + 1  # the backward launches nothing
     for name, g, r in zip("qkv", got, _ref_grads(c, q, k, v, do)):
         assert _rel(g, r) < TOL, name
     # the control, the wrappers before the Functions: the branch's output
@@ -206,17 +207,18 @@ def test_cuda_branch_gives_ssd_gradients(fake_extension, dtype):
     if dtype == torch.bfloat16:
         x, bmat, cmat = (t.detach().to(dtype).requires_grad_()
                          for t in (x, bmat, cmat))
-    before = sk.launches
+    before = build.launches["ssd_scan"]
     y, state = sk.ssd_cuda(x, dt, a, bmat, cmat, chunk=SSD_CASE[5],
                            init_state=s0)
-    assert sk.launches == before + 1 and fake_extension == ["ssd"]
+    assert build.launches["ssd_scan"] == before + 1 \
+        and fake_extension == ["ssd"]
     inputs = (x, dt, a, bmat, cmat, s0)
     got = torch.autograd.grad((y.float().sum() + state.sum()), inputs)
     for name, g, t in zip(["x", "dt", "a", "B", "C", "init"], got, inputs):
         assert g is not None and g.shape == t.shape, name
         assert bool(torch.isfinite(g.float()).all()) and \
             float(g.float().abs().max()) > 0, name
-    assert sk.launches == before + 1
+    assert build.launches["ssd_scan"] == before + 1
     assert sk._ssd_fwd(x, dt, a, bmat, cmat, SSD_CASE[5],
                        s0)[0].grad_fn is None
 

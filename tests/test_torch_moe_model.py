@@ -30,6 +30,7 @@ from repro.models.transformer import Model as JaxModel  # noqa: E402
 from repro.serve import Request as JaxRequest  # noqa: E402
 from repro.serve import ServeEngine as JaxEngine  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import chunked  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
 from repro_torch.models import embedloss  # noqa: E402
@@ -341,12 +342,14 @@ def test_kernel_wrappers_gqa_group_7_match_pallas_interpret(two_pass, dtype,
             for h, s in ((hq, sq), (hkv, skv), (hkv, skv))]
     q, k, v = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs)
     jq, jk, jv = (jnp.asarray(a, getattr(jnp, dtype)) for a in arrs)
-    mod, wrapper, pallas = ((chunked, chunked.chunked_attention_cuda,
+    key, wrapper, pallas = (("chunked_attention",
+                             chunked.chunked_attention_cuda,
                              chunked_attention_tpu) if two_pass else
-                            (fa, fa.flash_attention_cuda, flash_attention_tpu))
-    before = mod.launches
+                            ("flash_attention", fa.flash_attention_cuda,
+                             flash_attention_tpu))
+    before = build.launches[key]
     out = wrapper(q, k, v, causal=True)
     ref = pallas(jq, jk, jv, causal=True, bq=64, bk=64, interpret=True)
-    assert mod.launches == before
+    assert build.launches[key] == before
     assert out.shape == (b, hq, sq, d) and out.dtype == q.dtype
     assert _err(out, ref) < tol

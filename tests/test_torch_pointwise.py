@@ -22,6 +22,7 @@ torch.set_num_threads(2)
 
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.pointwise import kernel as pw  # noqa: E402
 from repro_torch.models import embedloss  # noqa: E402
 from repro_torch.models.config import get_config, get_smoke_config  # noqa: E402
@@ -30,6 +31,8 @@ from repro_torch.models.transformer import Model  # noqa: E402
 
 WRAPPERS = ("rms_norm_cuda", "add_rms_norm_cuda", "rope_qk_cuda",
             "swiglu_gate_cuda")
+# their keys in ``build.launches``
+KEYS = tuple(w[:-len("_cuda")] for w in WRAPPERS)
 # one smoke config of each family whose blocks run attention (both hybrid
 # layouts: the JAX package's zamba2 variant and Zyphra's)
 ARCHS = ("stablelm-3b", "gemma3-1b", "zamba2-7b", "arctic-480b",
@@ -51,7 +54,7 @@ def test_wrappers_run_the_plain_ops_on_cpu_tensors(dtype):
     scale = torch.randn(64, generator=g).to(dtype)
     q = torch.randn(B, S, 4, 32, generator=g).to(dtype)
     k = torch.randn(B, S, 2, 32, generator=g).to(dtype)
-    before = dict(pw.launches)
+    before = build.launches.copy()
     assert torch.equal(pw.rms_norm_cuda(x, scale, 1e-6),
                        rms_norm(x, scale, 1e-6))
     s, h = pw.add_rms_norm_cuda(x, y, scale, 1e-6)
@@ -64,7 +67,7 @@ def test_wrappers_run_the_plain_ops_on_cpu_tensors(dtype):
         assert torch.equal(rq, apply_rope(q, *table))
         assert torch.equal(rk, apply_rope(k, *table))
     assert torch.equal(pw.swiglu_gate_cuda(x, y), F.silu(x) * y)
-    assert pw.launches == before
+    assert build.launches == before
 
 
 def _bf16(*shape):
@@ -363,18 +366,18 @@ def test_phi3_forward_matches_the_plain_path_on_card(card, monkeypatch):
     rng = np.random.default_rng(0)
     batch = {"tokens": torch.from_numpy(rng.integers(
         0, cfg.vocab, (1, 2048)).astype(np.int32)).to(card)}
-    before = dict(pw.launches)
+    before = build.launches.copy()
     last = {}
     with torch.no_grad():
         last["fused"] = model.forward(params, batch)[:, -1]
-        counts = {k: pw.launches[k] - before[k] for k in before}
+        counts = {k: build.launches[k] - before[k] for k in KEYS}
         monkeypatch.setattr(pw, "takes", lambda x: False)
         last["plain"] = model.forward(params, batch)[:, -1]
         monkeypatch.setattr(transformer, "rms_norm", _sum_reordered_norm)
         last["control"] = model.forward(params, batch)[:, -1]
         tok = {k: embedloss.greedy(h, params["embed"], valid_vocab=cfg.vocab)
                for k, h in last.items()}
-    assert counts == dict.fromkeys(pw.launches, cfg.n_layers)
+    assert counts == dict.fromkeys(KEYS, cfg.n_layers)
     plain = last["plain"].float()
 
     def gap(k):
@@ -429,11 +432,11 @@ def test_family_forward_takes_the_kernels_on_card(card, arch, monkeypatch):
                                                               cfg.d_model))
                                             .astype(np.float32))
     batch = {k: v.to(card) for k, v in batch.items()}
-    before = dict(pw.launches)
+    before = build.launches.copy()
     out = {}
     with torch.no_grad():
         out["fused"] = model.forward(params, batch).float()
-        counts = tuple(pw.launches[k] - before[k] for k in before)
+        counts = tuple(build.launches[k] - before[k] for k in KEYS)
         monkeypatch.setattr(pw, "takes", lambda x: False)
         out["plain"] = model.forward(params, batch).float()
         monkeypatch.setattr(transformer, "rms_norm", _sum_reordered_norm)

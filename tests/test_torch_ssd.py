@@ -21,7 +21,7 @@ from repro.kernels.ssd_scan.kernel import ssd_tpu  # noqa: E402
 from repro.kernels.ssd_scan.ref import ssd_ref_sequential as jseq  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
 from repro.models.config import SSMConfig as JSSMConfig  # noqa: E402
-from repro_torch.kernels import registry  # noqa: E402
+from repro_torch.kernels import build, registry  # noqa: E402
 from repro_torch.kernels.flash_attention.chunked import chunked_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
@@ -96,10 +96,10 @@ def test_kernel_wrapper_on_cpu_matches_pallas_interpret(case):
     is no multiple of the chunk, and launches nothing."""
     b, l, h, p, n, chunk = case
     t, j = _both(_inputs(1, b, l, h, p, n), torch.float32, jnp.float32)
-    before = sk.launches
+    before = build.launches["ssd_scan"]
     y, s = sk.ssd_cuda(*t, chunk=chunk)
     yr, sr = ssd_tpu(*j, chunk=chunk, interpret=True)
-    assert sk.launches == before
+    assert build.launches["ssd_scan"] == before
     assert _err(y, yr) < 1e-4 and _err(s, sr) < 1e-4
 
 
@@ -262,10 +262,10 @@ def test_ssd_kernel_wrapper_with_state_matches_jax(case):
     t, j = _both(_inputs(8, b, l, h, p, n), torch.float32, jnp.float32)
     s0 = np.random.default_rng(9).normal(size=(b, h, p, n)).astype(
         np.float32)
-    before = sk.launches
+    before = build.launches["ssd_scan"]
     y, s = sk.ssd_cuda(*t, chunk=chunk, init_state=torch.from_numpy(s0))
     yr, sr = jssm.ssd_ref(*j, chunk=chunk, init_state=jnp.asarray(s0))
-    assert sk.launches == before
+    assert build.launches["ssd_scan"] == before
     assert y.shape == (b, l, h, p) and s.shape == (b, h, p, n)
     assert _err(y, yr) < 1e-4 and _err(s, sr) < 1e-4
 

@@ -24,6 +24,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.ssd_scan import decode as sd  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_decode_step  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
@@ -77,9 +78,10 @@ def _rel(a, b):
 def test_wrapper_on_cpu_updates_the_state_in_place(case, dtype):
     state, *args = inputs(*case, dtype=dtype)
     want_y, want_s = ssd_decode_step(state, *args)
-    ptr, before = state.data_ptr(), sd.launches
+    ptr, before = state.data_ptr(), build.launches["ssd_decode"]
     y = sd.ssd_decode_update(state, *args)
-    assert state.data_ptr() == ptr and sd.launches == before
+    assert state.data_ptr() == ptr
+    assert build.launches["ssd_decode"] == before
     assert torch.equal(state, want_s) and torch.equal(y, want_y)
     assert y.dtype == torch.float32 and y.shape == case[:3]
 
@@ -309,10 +311,11 @@ def test_kernel_against_the_plain_ops_on_card(card, case, dtype):
     state, *args = inputs(*case, device=card, dtype=dtype, seed=sum(case))
     want_y, want_s = ssd_decode_step(state, *args)
     saved = [t.clone() for t in args]
-    ptr, before = state.data_ptr(), sd.launches
+    ptr, before = state.data_ptr(), build.launches["ssd_decode"]
     y = sd.ssd_decode_update(state, *args)
     torch.cuda.synchronize()
-    assert sd.launches == before + 1 and state.data_ptr() == ptr
+    assert build.launches["ssd_decode"] == before + 1
+    assert state.data_ptr() == ptr
     assert torch.equal(state, want_s)
     assert _rel(y, want_y) <= Y_REL
     assert all(torch.equal(t, s) for t, s in zip(args, saved))
@@ -341,18 +344,20 @@ def test_captured_decode_matches_the_plain_route_on_card(card, monkeypatch):
             out.append(nxt.clone())
         return torch.stack(out, 1), cache
 
+    launches = build.launches
     with torch.no_grad():
-        before = sd.launches
+        before = launches["ssd_decode"]
         eager, eager_cache = run(model.decode_step)
-        assert sd.launches - before == cfg.n_layers * 16
-        before = sd.launches
+        assert launches["ssd_decode"] - before == cfg.n_layers * 16
+        before = launches["ssd_decode"]
         captured, cache = run(CapturedStep(model))
-        assert sd.launches - before == cfg.n_layers * (WARMUP_STEPS + 1)
+        assert launches["ssd_decode"] - before == \
+            cfg.n_layers * (WARMUP_STEPS + 1)
         with monkeypatch.context() as m:
             m.setattr(sd, "takes", lambda *args: False)
-            before = sd.launches
+            before = launches["ssd_decode"]
             plain, plain_cache = run(model.decode_step)
-            assert sd.launches == before
+            assert launches["ssd_decode"] == before
     torch.cuda.synchronize()
     assert torch.equal(eager, plain) and torch.equal(captured, plain)
     for c in (eager_cache, cache):

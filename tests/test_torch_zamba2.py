@@ -23,6 +23,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 
 import _zamba2_ref as ref  # noqa: E402
 
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as sk  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_ref_sequential  # noqa: E402
 from repro_torch.models import embedloss, ssm, transformer  # noqa: E402
@@ -386,9 +387,9 @@ def test_grouped_ssd_kernel_on_card(card, dtype):
     dt = torch.rand(b, l, h, generator=gen, device=card) * 0.1 + 1e-3
     a = -torch.rand(h, generator=gen, device=card) * 8 - 1
     s0 = torch.randn(b, h, p, n, generator=gen, device=card) * 0.1
-    before = sk.launches
+    before = build.launches["ssd_scan"]
     y, s = sk.ssd_cuda(x, dt, a, bm, cm, chunk=chunk, init_state=s0)
-    assert sk.launches == before + 1
+    assert build.launches["ssd_scan"] == before + 1
     yr, sr = ssd_ref_sequential(x, dt, a, bm, cm, init_state=s0)
     y_tol, s_tol = SSD_REL[dtype]
     assert _max_rel(y, yr) < y_tol and _max_rel(s, sr) < s_tol
