@@ -405,6 +405,10 @@ NO_KEY_FIRST = 23
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # phi3-medium-14b prefill: batch, q heads, kv heads, prompt, head dim
 PHI3_ATTN = (4, 40, 10, 2048, 128)
+# one layer's attention of the chain's frame (1 x 2048 tokens, phi3)
+CHAIN_ATTN = (1, 40, 10, 2048, 128)
+# calls queued back to back by stream_ms
+STREAM_CALLS = 50
 CACHE_LEN = 2064
 DECODE_STEPS = 16
 # calls timed back to back by the pointwise phase, one mean a kernel
@@ -668,6 +672,25 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def stream_ms(fn, calls: int = STREAM_CALLS) -> float:
+    """Mean device time of one call among ``calls`` queued back to back
+    behind a sleep, after warm-up: the rate at which the device runs them
+    when the host issues ahead of it (as the chain's does), with none of
+    the host's time in a call."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def qkv(gen, b, hq, hkv, sq, skv, d, dtype):
     """q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) as transposed views of
     (B, S, H, D) tensors, the layout the model hands the kernel."""
@@ -681,18 +704,21 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def library_ms(q, k, v, window: int = 0, causal: bool = True) -> float:
+def library_ms(q, k, v, window: int = 0, causal: bool = True,
+               timer=None) -> float:
     """One PyTorch call computing the same function (causal or unmasked,
     and with a ``window`` its causal mask as a boolean ``attn_mask``),
-    timed as a yardstick; the port never calls it."""
+    timed as a yardstick by ``timer`` (default ``time_ms``); the port
+    never calls it."""
+    timer = timer or time_ms
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if not window:
-        return time_ms(lambda: sdpa(q, k, v, is_causal=causal,
-                                    enable_gqa=True))
+        return timer(lambda: sdpa(q, k, v, is_causal=causal,
+                                  enable_gqa=True))
     pos = torch.arange(q.shape[2], device=q.device)
     mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
                                              - window)
-    return time_ms(lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True))
+    return timer(lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True))
 
 
 def smi_name_power() -> str:
@@ -829,7 +855,27 @@ def phase_kernel(gen, added, peaks: tuple[float, float]) -> dict:
                         ATTN_DESIGN)
     log(phase="kernel", cases=len(errs), max_abs_err_cases=errs,
         shape=list(PHI3_ATTN), dtype="bfloat16", causal=True,
+        stream_ms=stream_ms(lambda: fa.flash_attention_cuda(q, k, v,
+                                                            causal=True)),
+        library_stream_ms=library_ms(q, k, v, timer=stream_ms),
         **{k: v for k, v in rec.items() if k != "launches"})
+
+    # the chain's shape: one layer of a 1 x 2048 frame, from its own
+    # generator, so the phases after it see the data they saw before
+    b, hq, hkv, s, d = CHAIN_ATTN
+    chain_gen = torch.Generator(device=DEVICE)
+    chain_gen.manual_seed(SEED + 7)
+    q, k, v = qkv(chain_gen, b, hq, hkv, s, s, d, torch.bfloat16)
+    out = fa.flash_attention_cuda(q, k, v, causal=True)
+    err = max_err(out, attention_kernel_ref(q, k, v, causal=True))
+    require(err < TOL[torch.bfloat16], f"chain-shape kernel error {err}")
+    bound_ms, _ = bound(*attn_work(b, hq, hkv, s, d), peaks)
+    ms = stream_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True))
+    log(phase="kernel_chain_shape", shape=list(CHAIN_ATTN), max_abs_err=err,
+        ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True)),
+        stream_ms=ms, bound_ms=bound_ms, share_of_bound=bound_ms / ms,
+        library_ms=library_ms(q, k, v),
+        library_stream_ms=library_ms(q, k, v, timer=stream_ms))
     return rec
 
 

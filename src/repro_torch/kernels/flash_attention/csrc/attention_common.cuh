@@ -40,7 +40,11 @@
 // registers (P V is one m64n256k16, the widest N wgmma takes). D = 224
 // (Zyphra's zamba2, 448 bytes a row) pads to D = 256's four atoms and
 // shared memory, runs 14 k-steps of Q K^T and one m64n224k16 for P V, and
-// holds 112 O registers a thread.
+// holds 112 O registers a thread. That is the two-pass kernel's body
+// (chunked_fwd_tc) as a whole; the flash kernel's (flash_attention.cu)
+// shares its swizzled tile layout, masks, online softmax and epilogue, and
+// fills its tiles by TMA in the producer/consumer shape, with its own tile
+// rows.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -4,7 +4,8 @@ reference on the CPU, the kernel wrappers' CPU paths on rows that see no
 key, and a plain-torch emulation of the bf16 tensor-core bodies'
 arithmetic against the reference's. Inputs are made
 with numpy from a seed and fed to both. The kernel itself runs only on a
-GPU (``chip_smoke.py``)."""
+GPU: the ``-m chip`` cases at the end hold its bf16 body against the
+plain version there (they need no JAX), as ``chip_smoke.py`` does."""
 import math
 
 import numpy as np
@@ -14,17 +15,21 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 torch.backends.cuda.matmul.allow_tf32 = False
 
-import jax.numpy as jnp  # noqa: E402
+try:
+    import jax.numpy as jnp  # noqa: E402
 
-from repro.kernels.flash_attention.chunked import chunked_attention_tpu  # noqa: E402
-from repro.kernels.flash_attention.kernel import flash_attention_tpu  # noqa: E402
-from repro.kernels.flash_attention.ref import attention_ref as jax_ref  # noqa: E402
-from repro.models import attention as jattn  # noqa: E402
+    from repro.kernels.flash_attention.chunked import chunked_attention_tpu  # noqa: E402
+    from repro.kernels.flash_attention.kernel import flash_attention_tpu  # noqa: E402
+    from repro.kernels.flash_attention.ref import attention_ref as jax_ref  # noqa: E402
+    from repro.models import attention as jattn  # noqa: E402
+except ImportError:  # a machine with a card and no JAX runs the -m chip cases only
+    jnp = None
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import chunked  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_kernel_ref, attention_ref)
 from repro_torch.models import attention as tattn  # noqa: E402
 
 # the reference's grid (tests/test_kernels.py)
@@ -37,8 +42,8 @@ FLASH_CASES = [
     (1, 4, 1, 256, 256, 32, True, 48, 64, 32),     # sliding window
     (1, 2, 2, 64, 64, 128, True, 0, 64, 64),
 ]
-DTYPES = {"float32": (torch.float32, jnp.float32, 2e-5),
-          "bfloat16": (torch.bfloat16, jnp.bfloat16, 2e-2)}
+DTYPES = {"float32": (torch.float32, "float32", 2e-5),
+          "bfloat16": (torch.bfloat16, "bfloat16", 2e-2)}
 
 
 def _qkv(seed, b, hq, hkv, sq, skv, d):
@@ -255,28 +260,44 @@ def test_decode_attention_matches_jax(per_lane):
         assert od.shape == (b, hq, d) and _err(od, jod) < 2e-5
 
 
-# the bf16 bodies' tiling (attention_common.cuh, namespace attn::tc): blocks
-# of BQ query rows as warpgroups of WG rows, kv tiles of BK rows
+# the bf16 bodies' tiling: blocks of BQ query rows as warpgroups of WG
+# rows; the two-pass body's kv tiles have TC_BK rows
+# (attention_common.cuh, namespace attn::tc), the flash body's
+# flash_kv_rows(d) (flash_attention.cu kv_rows)
 TC_BQ, TC_WG, TC_BK = 128, 64, 64
 # a zamba2-like head dim beside the reference grid; its q rows end inside
 # the second block's first warpgroup
 D112_CASE = (1, 4, 2, 160, 160, 112, True, 0, 32, 32)
 # gemma3's head dim (one m64n256k16 for P.v), on the same rows
 D256_CASE = (1, 4, 2, 160, 160, 256, True, 0, 32, 32)
+# the flash body's 128-row kv tiles at D = 128: three query tiles, the last
+# ragged, over three kv tiles, and a window that cuts a tile's far edge
+D128_CASES = [(1, 2, 1, 300, 300, 128, True, 0, 32, 32),
+              (1, 2, 2, 300, 300, 128, True, 150, 32, 32)]
+
+
+def flash_kv_rows(d: int) -> int:
+    """Kv rows of a ring stage of the flash body at head dim ``d``."""
+    return 128 if d <= 128 else 64
 
 
 def _tc_emulation(q, k, v, *, causal, window, two_pass):
     """What the bf16 tensor-core bodies compute, rounding where they round:
-    bf16 q/k/v, fp32 scores; per warpgroup the kernel's kv tiles between
-    its block's loop bounds, skipping tiles none of its rows sees; scores
-    in the log2 domain, masked to -inf; the online max with the
-    exp(m_prev - m_new) rescale (flash) or a first pass for the max (two
-    passes); P rounded to bf16 before P.v and summed as rounded into l;
-    fp32 o; o / max(l, 1e-30) rounded to bf16. q (B, Hq, Sq, D), k/v
+    bf16 q/k/v, fp32 scores; each block's kv tiles between its loop bounds
+    (the two-pass body per warpgroup, skipping tiles none of its rows
+    sees; the flash body for both warpgroups, its 128-row tiles at
+    D <= 128); masked scores -inf; P rounded to bf16 before P.v and summed
+    as rounded into l; fp32 o; o / max(l, 1e-30) rounded to bf16. The
+    two-pass body takes the scores in the log2 domain (s * scale_log2) and
+    a first pass for the max; the flash body keeps the raw scores, tracks
+    their online max m with the rescale 2^((m_old - m_new) scale_log2),
+    and takes P = 2^(s scale_log2 - m scale_log2) in one fused multiply-add
+    (emulated in float64, rounded once). q (B, Hq, Sq, D), k/v
     (B, Hkv, Skv, D) bf16."""
     b, hq, sq, d = q.shape
     skv = k.shape[2]
     group = hq // k.shape[1]
+    bk = TC_BK if two_pass else flash_kv_rows(d)
     qf = q.float()
     kf = k.float().repeat_interleave(group, 1)
     vf = v.float().repeat_interleave(group, 1)
@@ -289,16 +310,19 @@ def _tc_emulation(q, k, v, *, causal, window, two_pass):
 
     for q0 in range(0, sq, TC_BQ):
         lo, hi = reach(q0, TC_BQ)
-        tiles = range(lo // TC_BK * TC_BK, hi, TC_BK)
+        tiles = range(lo // bk * bk, hi, bk)
         for r0 in range(q0, min(q0 + TC_BQ, sq), TC_WG):
             wlo, whi = reach(r0, TC_WG)
-            seen = [k0 for k0 in tiles if k0 < whi and k0 + TC_BK > wlo]
+            seen = ([k0 for k0 in tiles if k0 < whi and k0 + bk > wlo]
+                    if two_pass else list(tiles))
             rows = torch.arange(r0, min(r0 + TC_WG, sq))
 
             def scores(k0):
-                cols = torch.arange(k0, min(k0 + TC_BK, skv))
+                cols = torch.arange(k0, min(k0 + bk, skv))
                 s = torch.einsum("bhqd,bhkd->bhqk", qf[:, :, rows],
-                                 kf[:, :, cols]) * scale_log2
+                                 kf[:, :, cols])
+                if two_pass:
+                    s = s * scale_log2
                 ok = torch.ones(len(rows), len(cols), dtype=torch.bool)
                 if causal:
                     ok &= cols[None] <= rows[:, None]
@@ -314,13 +338,17 @@ def _tc_emulation(q, k, v, *, causal, window, two_pass):
                     m = torch.maximum(m, scores(k0)[0].amax(-1, True))
             for k0 in seen:
                 s, cols = scores(k0)
-                if not two_pass:
+                if two_pass:
+                    base = torch.where(m == -math.inf, 0.0, m)
+                    p = torch.exp2(s - base)
+                else:
                     m_new = torch.maximum(m, s.amax(-1, True))
                     base = torch.where(m_new == -math.inf, 0.0, m_new)
-                    corr = torch.exp2(m - base)
+                    corr = torch.exp2((m - base) * scale_log2)
                     m, l, o = m_new, l * corr, o * corr
-                base = torch.where(m == -math.inf, 0.0, m)
-                p = torch.exp2(s - base).bfloat16().float()
+                    p = torch.exp2((s.double() * scale_log2
+                                    - (base * scale_log2).double()).float())
+                p = p.bfloat16().float()
                 l = l + p.sum(-1, keepdim=True)
                 o = o + p @ vf[:, :, cols]
             out[:, :, rows] = o / l.clamp_min(1e-30)
@@ -328,12 +356,13 @@ def _tc_emulation(q, k, v, *, causal, window, two_pass):
 
 
 @pytest.mark.parametrize("two_pass", [False, True], ids=["flash", "two_pass"])
-@pytest.mark.parametrize("case", FLASH_CASES + [D112_CASE, D256_CASE])
+@pytest.mark.parametrize("case", FLASH_CASES + [D112_CASE, D256_CASE]
+                         + D128_CASES)
 def test_tc_emulation_matches_jax_bf16(case, two_pass):
     """The emulated bf16 kernel (flash and two-pass variants) against the
     reference's XLA flash attention and its Pallas kernel of the same
-    variant in interpret mode, on the reference grid and D=112 and D=256
-    cases, at
+    variant in interpret mode, on the reference grid, D=112 and D=256
+    cases, and D=128 cases over several of the flash body's kv tiles, at
     the bf16 tolerance: the margin the bf16 rounding of P leaves before
     the card's gates."""
     b, hq, hkv, sq, skv, d, causal, window, bq, bk = case
@@ -398,3 +427,84 @@ def test_kernel_plain_version_takes_query_offset(start, window):
         part = fn(tq, tk, tv, causal=True, window=window, q_offset=start)
         assert float((part - whole[:, :, start:start + 16]).abs().max()) \
             < 2e-5
+
+
+# ------------------------------------------------------------ the card
+@pytest.fixture
+def card():
+    """The CUDA device; skips the test where this host has none (decided
+    when the test runs, never when the module is imported)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _card_qkv(seed, b, hq, hkv, sq, skv, d, device):
+    """bf16 q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) on ``device`` as
+    transposed views of (B, S, H, D) tensors, the layout the model hands
+    the kernel."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def make(s, h):
+        return torch.randn((b, s, h, d), generator=gen).to(
+            torch.bfloat16).to(device).transpose(1, 2)
+    return make(sq, hq), make(skv, hkv), make(skv, hkv)
+
+
+# b, hq, hkv, sq, skv, d, causal, window, q_offset, scale: every head dim
+# causal, under a window of 1024 and non-causal; GQA groups 1, 4 and 7;
+# whisper's cross attention (224 x 1500) and its ragged 1500; a ragged
+# 2047; phi3's prompt in four query slices at their offsets, and gemma3's
+# windowed one; Zyphra zamba2's softmax scale (224 / 2)^-1/2
+CARD_CASES = (
+    [(1, 4, 2, 2048, 2048, d, True, 0, 0, None) for d in fa.HEAD_DIMS]
+    + [(1, 4, 2, 2048, 2048, d, True, 1024, 0, None) for d in fa.HEAD_DIMS]
+    + [(2, 4, 2, 700, 700, d, False, 0, 0, None) for d in fa.HEAD_DIMS]
+    + [(1, 8, 8, 1024, 1024, 128, True, 0, 0, None),
+       (1, 40, 10, 2048, 2048, 128, True, 0, 0, None),
+       (1, 7, 1, 600, 600, 128, True, 0, 0, None),
+       (2, 12, 12, 224, 1500, 64, False, 0, 0, None),
+       (2, 12, 12, 1500, 1500, 64, False, 0, 0, None),
+       (1, 8, 2, 2047, 2047, 128, True, 0, 0, None)]
+    + [(1, 8, 2, 512, 2048, 128, True, 0, off, None)
+       for off in (0, 512, 1024, 1536)]
+    + [(1, 4, 2, 512, 2048, 256, True, 1024, off, None)
+       for off in (0, 512, 1024, 1536)]
+    + [(1, 8, 8, 1000, 1000, 224, True, 0, 0, (224 / 2) ** -0.5)])
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("case", CARD_CASES, ids=[
+    "-".join(str(x) for x in c[:8]) + f"-off{c[8]}" + ("-scale" if c[9] else "")
+    for c in CARD_CASES])
+def test_flash_kernel_matches_plain_version_on_card(card, case):
+    """The bf16 body against the plain version at the bf16 tolerance, in
+    one launch of the kernel a call."""
+    b, hq, hkv, sq, skv, d, causal, window, q_offset, scale = case
+    q, k, v = _card_qkv(sum(case[:8]), b, hq, hkv, sq, skv, d, card)
+    before = build.launches["flash_attention"]
+    out = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset, scale=scale)
+    torch.cuda.synchronize()
+    assert build.launches["flash_attention"] == before + 1
+    ref = attention_kernel_ref(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset, scale=scale)
+    assert out.shape == (b, hq, sq, d) and out.dtype == torch.bfloat16
+    assert bool(torch.isfinite(out).all())
+    assert float((out.float() - ref.float()).abs().max()) < 2e-2
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_flash_kernel_rows_without_keys_are_zero_on_card(card, d):
+    """Non-causal under a window of 8 over 16 keys: the query rows from 23
+    on see no key and the bf16 body gives them exactly 0; the rest match
+    the plain version."""
+    b, hq, hkv, sq, skv, _, causal, window = NO_KEY_CASE
+    q, k, v = _card_qkv(d, b, hq, hkv, sq, skv, d, card)
+    out = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    ref = attention_kernel_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert bool((out[:, :, NO_KEY_ROWS] == 0).all())
+    assert float(out[:, :, :NO_KEY_ROWS.start].abs().max()) > 0.1
+    assert float((out.float() - ref.float()).abs().max()) < 2e-2
