@@ -159,6 +159,29 @@ hybrid, 81 layers, 14.7 GB) runs:
             once a layer (81, counted from zero before the step).
             ``python3 chip_smoke.py
             zamba2_instruct`` builds the kernels and runs this phase alone.
+Then its weights are freed and granite-4.0-h-small (IBM's Granite 4.0-H
+Small, whole: 36 Mamba2 and 4 NoPE attention layers, a dropless MoE of 72
+experts top-10 with a shared expert in every layer, 64.4 GB) runs:
+  granite : the weights of the benchmark's cell (``bench/weights.py`` and
+            ``drivers/serve_granite.py``'s constants) and their memory;
+            the decode update kernel at one layer of 32 lanes (128 heads
+            of 64, d_state 128, one group) against the plain ops, timed
+            against its byte bound; a bf16 prefill of 1 x 1024 tokens
+            (exactly 36 SSD and 4 flash launches, no RoPE, the dropless
+            MoE's capacity read from its counts) whose hidden states lie
+            against the benchmark's fp32 reference
+            (``bench/reference/granite.py``) within 1.5x the plain path's;
+            the share of greedy tokens that repeat their input token over
+            16 decode steps of 32 lanes, with the cell's embedding scale
+            and with the published std undivided (logged); and one eager decode
+            step of 32 lanes at position 300 of an 896-slot cache: 36
+            decode update launches and 4 NoPE decode attentions, each
+            range's device ms (``moe/*``, ``mamba/*``, ``attention/nope``)
+            and the kernels inside each, every kernel that
+            ``moe_route_share.granite-serve``'s pattern matches lying
+            inside ``moe/route_dispatch`` or ``moe/combine``.
+            ``python3 chip_smoke.py granite`` builds the kernels and runs
+            this phase alone.
 Then its weights are freed and mamba2-1.3b (the ssm family, whole,
 2.7 GB) serves as phi3 does, with an fp32 witness of every layer, after
 the decode update kernel's check at its layer (64 heads of 64, d_state
@@ -489,6 +512,18 @@ ZI_UPDATE_BACK_TO_BACK = 20
 ZI_UPDATE_Y_REL = 1e-5
 ZI_RANGES = ("zamba2/shared_block", "attention", "mamba/conv", "mamba/scan",
              "mamba/update", "mamba/gated_norm")
+# granite-4.0-h-small: the prefill (above the dropless MoE's static token
+# count, so its capacity is read from the counts), the rows held against
+# the fp32 reference, the eager decode step (lanes, slots, position) as
+# the cell's, the decode steps of the echo count, and the ranges read
+GR_PREFILL = (1, 1024)
+GR_REF_ROWS = 1
+GR_DECODE = (32, 896, 300)
+GR_ECHO_STEPS = 16
+GR_RANGES = ("moe/route_dispatch", "moe/experts", "moe/combine",
+             "moe/shared", "mamba/conv", "mamba/update", "mamba/gated_norm",
+             "attention/nope")
+GR_ROUTING = ("moe/route_dispatch", "moe/combine")
 # zamba2's prefill through 81 Mamba2 layers and 13 shared-attention
 # applications in bf16 is 8.5e-2 to 1.1e-1 (last hidden state, relative
 # max-norm) from an fp32 prefill of the same weights on every path, the
@@ -2507,15 +2542,22 @@ def phase_zamba_prefill(gen, fa_rec, ca_rec, ssd_rec):
 
 
 # =============================================================== gemma3-12b
-def range_ms(fn, names=ZI_RANGES) -> dict[str, float]:
+def range_ms(fn, names=ZI_RANGES, kernels: dict | None = None
+             ) -> dict[str, float]:
     """Device ms of each of the program's profiler ranges ``names`` in one
     call of ``fn``, and the call's device busy ms. A kernel counts in a
     range when the host call that launched it lies inside the range
     (nested ranges both count it). The extension's kernels are launched
-    outside any aten op, so the profiler links them to no range; on one
-    stream the device runs what the host launched in order, so the n-th
-    launch call is paired with the n-th device activity; where the counts
-    differ, no range is read."""
+    outside any aten op, so the profiler links them to no range; each
+    device activity is paired with the host launch call of the same CUPTI
+    correlation id. A long process can lose a few activities from the
+    trace (14 of ~4,300 a step after the earlier phases, on the card):
+    those and launch calls left without one are counted under
+    ``unpaired`` (launches, activities) and in no range. Given
+    ``kernels``, a dict, it is filled with each paired kernel name's
+    (first 100 characters, as the benchmark's trace keeps them) device ms
+    and the ranges it ran in (the innermost of ``names``; "" outside
+    them)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2524,24 +2566,33 @@ def range_ms(fn, names=ZI_RANGES) -> dict[str, float]:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ranges, calls, device = [], [], []
+    ranges, calls, device = [], {}, []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             if not getattr(e, "is_user_annotation", False):
-                device.append((e.time_range.start, e.time_range.end))
+                device.append((e.id, e.time_range.start, e.time_range.end,
+                               e.name[:100]))
         elif e.name in names:
             ranges.append((e.time_range.start, e.time_range.end, e.name))
         elif HOST_LAUNCH.match(e.name):
-            calls.append(e.time_range.start)
-    busy = sum(end - start for start, end in device) / 1e3
-    if len(calls) != len(device):
-        return {"unpaired": [len(calls), len(device)],
-                "device_kernels_ms": busy}
+            calls[e.id] = e.time_range.start
+    busy = sum(end - start for _, start, end, _ in device) / 1e3
+    paired = [(calls[i], start, end, kname)
+              for i, start, end, kname in device if i in calls]
     out = dict.fromkeys(names, 0.0)
-    for call, (start, end) in zip(sorted(calls), sorted(device)):
-        for r0, r1, name in ranges:
+    for call, start, end, kname in paired:
+        inner = ""
+        for r0, r1, name in sorted(ranges):
             if r0 <= call <= r1:
                 out[name] += (end - start) / 1e3
+                inner = name
+        if kernels is not None:
+            rec = kernels.setdefault(kname, {"ms": 0.0, "ranges": []})
+            rec["ms"] += (end - start) / 1e3
+            if inner not in rec["ranges"]:
+                rec["ranges"].append(inner)
+    if len(paired) < max(len(calls), len(device)):
+        out["unpaired"] = [len(calls) - len(paired), len(device) - len(paired)]
     return {**out, "device_kernels_ms": busy}
 
 
@@ -2607,15 +2658,14 @@ def phase_update_shapes(cfg, lanes: tuple[int, ...]) -> None:
                cfg.ssm.d_state, cfg.ssm.n_groups], errs=errs)
 
 
-def decode_update_rec(gen, peaks, cfg) -> dict:
+def decode_update_rec(gen, peaks, cfg, lanes: int = ZI_DECODE[0]) -> dict:
     """The decode update kernel (``kernels/ssd_scan/decode.py``) at one
-    Mamba2 layer of the cell's step (``ZI_DECODE``'s lanes, bf16 inputs,
+    Mamba2 layer of a cell's step (``lanes``, bf16 inputs,
     :func:`update_inputs`): :func:`update_errs`; the kernel's time and the
     plain ops' with their copy back into the cache, each a mean over
     ``ZI_UPDATE_BACK_TO_BACK`` calls back to back on ``ZI_UPDATE_SETS``
     states in turn; the bound (the state read once and written once over
     the memory rate) and the share of it."""
-    lanes = ZI_DECODE[0]
     states, args = update_inputs(gen, lanes, cfg, sets=ZI_UPDATE_SETS)
     errs = update_errs(cfg.name, states[0], args)
 
@@ -2769,6 +2819,173 @@ def phase_zamba2_instruct(gen, peaks) -> dict:
         decode_cache_gb=sum(t.numel() * t.element_size()
                             for t in cache.values()) / 1e9,
         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del cache, model, params
+    free_model(cfg.name)
+    return recs
+
+
+def granite_weights(model, seed: int):
+    """The weights of the Granite cell as the benchmark makes them
+    (``bench/weights.py``, then ``drivers/serve_granite.py``'s constants),
+    and the stand-in cell (seed and ``as_run``) those constants read."""
+    from bench import harness, weights
+    from bench.drivers import serve_granite
+
+    config = harness.load_json(harness.BENCH / "configs"
+                               / "granite-4.0-h-small.json")
+    cell = types.SimpleNamespace(seed=seed, dims=config["as_run"],
+                                 config=config)
+    params = weights.make(model.param_shapes(), transformer.STACK_DIMS, seed,
+                          DEVICE, torch.bfloat16)
+    serve_granite.published_init(params, cell)
+    return params, cell
+
+
+def echo_share(model, params, steps: int = GR_ECHO_STEPS) -> float:
+    """The share of greedy tokens equal to their input token over
+    ``steps`` decode steps of ``GR_DECODE``'s lanes fed seeded random
+    tokens: near 1 where the token's own embedding outweighs what the
+    layers add in the tied head's logits."""
+    lanes = GR_DECODE[0]
+    cache = model.init_cache(lanes, steps + 1, device=DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 8)
+    same = 0
+    for _ in range(steps):
+        tok = torch.randint(0, model.cfg.vocab, (lanes,), generator=gen,
+                            device=DEVICE, dtype=torch.int32)
+        nxt, cache = model.decode_step(params, cache, tok)
+        same += int((nxt == tok).sum())
+    return same / (lanes * steps)
+
+
+def phase_granite(gen, peaks) -> dict:
+    """IBM's Granite 4.0-H Small (``granite-4.0-h-small``), whole: the
+    decode update at its layer, the cell's weights, a prefill against the
+    benchmark's fp32 reference, the echo share, and the program's ranges
+    and kernels in an eager decode step of the cell's lanes (module
+    docstring)."""
+    from bench import harness
+    from bench.drivers import serve_granite
+    from bench.reference.granite import Reference as GraniteReference
+
+    cfg = get_config("granite-4.0-h-small")
+    n_attn = cfg.layer_types.count("attention")
+    n_ssm = cfg.n_layers - n_attn
+    recs = {"decode_update": decode_update_rec(gen, peaks, cfg,
+                                               lanes=GR_DECODE[0])}
+    log(phase="granite_kernels", **recs)
+
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, cell = granite_weights(model, SEED)
+    torch.cuda.synchronize()
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in flat_tensors(params)) / 1e9
+    log(phase="granite_weights", weights_gb=weights_gb,
+        params=sum(t.numel() for t in flat_tensors(params)),
+        init_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    tokens = torch.randint(0, cfg.vocab, GR_PREFILL, generator=gen,
+                           device=DEVICE)
+    batch = {"tokens": tokens}
+    with torch.no_grad():
+        model.forward(params, {"tokens": tokens[:, :64]})   # warm-up
+    torch.cuda.synchronize()
+    build.launches.clear()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        hidden = model.forward(params, batch)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    launches = require_launches("granite-4.0-h-small forward", {
+        "ssd_scan": n_ssm, "flash_attention": n_attn,
+        "chunked_attention": 0, "ssd_decode": 0, "rms_norm": n_attn,
+        "add_rms_norm": cfg.n_layers, "rope_qk": 0,
+        "swiglu_gate": cfg.n_layers})
+    plain_model = Model(dataclasses.replace(cfg, attn_impl="xla_flash",
+                                            ssd_impl="blocked"))
+    with torch.no_grad(), plain_pointwise():
+        plain = plain_model.forward(params, batch)
+    ref = GraniteReference(cell.dims, params)
+    want_h = ref.hidden(tokens[:GR_REF_ROWS])
+
+    def gaps(h):
+        rows = h[:GR_REF_ROWS].float()
+        rel = float((rows - want_h).norm() / want_h.norm())
+        logits = ref.logits(want_h)
+        pick = ref.logits(rows).argmax(-1)
+        gap = logits.max(-1).values - logits.gather(-1, pick[..., None])[..., 0]
+        return {"rel": rel, "token_gap_max": float(gap.max())}
+
+    kernel_err, plain_err = gaps(hidden), gaps(plain)
+    require(kernel_err["rel"] <= BF16_RATIO_TOL * plain_err["rel"],
+            f"granite-4.0-h-small kernel path {kernel_err} against the plain "
+            f"path {plain_err}")
+    del hidden, plain, ref, want_h, plain_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the echo: the cell's embedding scale, then the published std
+    # undivided by the multiplier, then the cell's again
+    echo = {"cell": echo_share(model, params)}
+    table = torch.Generator(device=DEVICE)
+    table.manual_seed(SEED + 9)
+    params["embed"].normal_(0.0, cell.config["initializer_range"],
+                            generator=table)
+    echo["published_std"] = echo_share(model, params)
+    serve_granite.published_init(params, cell)
+
+    lanes, slots, pos = GR_DECODE
+    cache = model.init_cache(lanes, slots, device=DEVICE)
+    cache["pos"].fill_(pos)
+    tok = torch.randint(0, cfg.vocab, (lanes,), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    calls = []
+    decode_attention = transformer.decode_attention
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return decode_attention(*args, **kw)
+
+    build.launches.clear()
+    transformer.decode_attention = counted
+    try:
+        model.decode_step(params, cache, tok)               # warm-up
+    finally:
+        transformer.decode_attention = decode_attention
+    update_launches = build.launches["ssd_decode"]
+    require(update_launches == n_ssm and len(calls) == n_attn,
+            f"{update_launches} decode update launches and {len(calls)} "
+            f"decode attentions in a step, want {n_ssm} and {n_attn}")
+    decode = _profile(lambda: model.decode_step(params, cache, tok))
+    kernels: dict = {}
+    decode_ranges = range_ms(lambda: model.decode_step(params, cache, tok),
+                             GR_RANGES, kernels)
+    route = harness.load_module(
+        "metrics", "moe_route_share.granite-serve").ROUTE
+    matched = {k: v for k, v in kernels.items() if route.search(k)}
+    outside = {k: v["ranges"] for k, v in matched.items()
+               if set(v["ranges"]) - set(GR_ROUTING)}
+    route_ms = sum(v["ms"] for v in matched.values())
+    log(phase="granite", forward_s=forward_s, launches=launches,
+        kernel_path=kernel_err, plain_path=plain_err, echo_share=echo,
+        decode_step=decode, decode_ranges_ms=decode_ranges,
+        update_launches_a_step=update_launches,
+        decode_attentions_a_step=len(calls),
+        route_kernels_ms=route_ms,
+        route_share_of_kernels=route_ms / decode_ranges["device_kernels_ms"],
+        kernels=kernels, route_outside_routing=outside,
+        decode_cache_gb=sum(t.numel() * t.element_size()
+                            for t in cache.values()) / 1e9,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    paired_ms = sum(v["ms"] for v in kernels.values())
+    require(matched and not outside
+            and paired_ms >= 0.95 * decode_ranges["device_kernels_ms"],
+            f"moe_route_share's pattern: matched {sorted(matched)}, outside "
+            f"the routing ranges {outside}, {paired_ms:.2f} of "
+            f"{decode_ranges['device_kernels_ms']:.2f} kernel ms paired "
+            f"with their launches")
     del cache, model, params
     free_model(cfg.name)
     return recs
@@ -4411,6 +4628,13 @@ def main(argv=None) -> int:
         print(json.dumps({"ok": True, "phase": "zamba2_instruct"}),
               flush=True)
         return 0
+    if argv == ["granite"]:
+        build.extension()
+        gen.manual_seed(SEED + 10)
+        phase_granite(gen, peaks)
+        print(smi_name_power(), flush=True)
+        print(json.dumps({"ok": True, "phase": "granite"}), flush=True)
+        return 0
     usage = phase_build()
     fa_rec = phase_kernel(gen, added, peaks)
     phase_pointwise(peaks)
@@ -4455,6 +4679,10 @@ def main(argv=None) -> int:
     zi_gen = torch.Generator(device=DEVICE)
     zi_gen.manual_seed(SEED + 5)
     phase_zamba2_instruct(zi_gen, peaks)
+    # IBM's Granite 4.0-H Small, likewise from its own generator
+    gr_gen = torch.Generator(device=DEVICE)
+    gr_gen.manual_seed(SEED + 10)
+    phase_granite(gr_gen, peaks)
 
     # the ssm family, whole: its decode step captured and served; prompts
     # from ``added``, so the phases after it see the data they saw before

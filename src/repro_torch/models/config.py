@@ -15,8 +15,13 @@ two deliberate differences:
 
 Beyond the reference, the hybrid family takes Zyphra's published layout
 (``hybrid_layer_ids`` non-empty; zamba2-7b-instruct): the fields below
-that field, and ``SSMConfig.n_groups`` / ``conv_bias``. Their defaults keep
-the reference's variant.
+that field, and ``SSMConfig.n_groups`` / ``conv_bias``; and a layer pattern
+given as data (``layer_types`` non-empty; granite-4.0-h-small): one mixer a
+layer, Mamba2 or attention, each followed by its own FFN (a MoE with
+``MoEConfig.dropless``, beside a shared SwiGLU expert), with the fields
+after ``layer_types`` (no RoPE, a softmax scale, the embedding, residual
+and logits multipliers). Their defaults keep the reference's variant and
+every other configuration unchanged.
 """
 from __future__ import annotations
 
@@ -28,11 +33,20 @@ Kind = Literal["dense", "moe", "ssm", "hybrid", "encdec", "vlm", "audio"]
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
+    """A MoE FFN: ``top_k`` of ``n_experts`` SwiGLU experts of width
+    ``d_ff_expert`` a token. Each expert takes at most C assignments a
+    step, C = ceil(T k / E * ``capacity_factor``) of the step's T tokens,
+    and drops the rest (Switch/GShard) wherever more than C tokens pick
+    it. ``dropless`` sets C = T: a token picks an expert at most once, so
+    no assignment is ever dropped (``models/moe.py``)."""
     n_experts: int
     top_k: int
     d_ff_expert: int
-    dense_residual: bool = False      # arctic: dense MLP in parallel with MoE
+    # a dense SwiGLU of width d_ff on the same normed input, added to the
+    # experts' output: arctic's residual MLP, Granite's shared expert
+    dense_residual: bool = False
     capacity_factor: float = 1.25
+    dropless: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +102,19 @@ class ModelConfig:
     n_mem_blocks: int = 1
     attn_in: int = 0                  # 0 -> d_model
     adapter_rank: int = 0
+    # Hybrid, a layer pattern as data (set by a non-empty `layer_types`,
+    # one entry a layer: "mamba" or "attention"; IBM's Granite 4.0-H):
+    # layer i runs its mixer (a Mamba2 layer or a GQA attention block,
+    # each behind its own input norm), then its own FFN (`ln_mlp`, then
+    # the MoE of `moe` with its dense residual as the shared expert). Each
+    # branch's output is multiplied by `residual_multiplier` before its
+    # residual add.
+    layer_types: tuple[str, ...] = ()
+    rope: bool = True                 # False: no positional encoding (NoPE)
+    softmax_scale: float = 0.0        # 0 -> the attention's own default
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0       # the head's logits are divided by it
     # Encoder-decoder (whisper): number of encoder layers; frontend stub emits
     # `enc_len` precomputed frame embeddings.
     n_enc_layers: int = 0
@@ -127,10 +154,19 @@ class ModelConfig:
         return self.attn_in or self.d_model
 
     @property
+    def patterned(self) -> bool:
+        """Whether this is the hybrid family's layer pattern given as data
+        (``layer_types``)."""
+        return self.kind == "hybrid" and bool(self.layer_types)
+
+    @property
     def attn_scale(self) -> float | None:
         """Softmax scale of the attention scores where it is not the
-        attention's default hd^-1/2: (hd / 2)^-1/2 in Zyphra's shared
-        blocks, None elsewhere."""
+        attention's default hd^-1/2: ``softmax_scale`` where it is set
+        (Granite's ``attention_multiplier``), (hd / 2)^-1/2 in Zyphra's
+        shared blocks, None elsewhere."""
+        if self.softmax_scale:
+            return self.softmax_scale
         return (self.hd / 2) ** -0.5 if self.zyphra else None
 
     @property
@@ -178,6 +214,20 @@ class ModelConfig:
         if self.kind == "ssm":
             total += self.n_layers * ssm_params()
             active = total
+            return total, active
+
+        if self.patterned:
+            n_attn = self.layer_types.count("attention")
+            m = self.moe
+            # ln_mlp, the router, the experts and the shared expert
+            ffn = d + d * m.n_experts + m.n_experts * 3 * d * m.d_ff_expert \
+                + m.dense_residual * mlp_params(self.d_ff)
+            ffn_active = ffn - (m.n_experts - m.top_k) * 3 * d * m.d_ff_expert
+            # attn_params() counts ln_mlp too: the FFN's own here
+            mixers = (self.n_layers - n_attn) * ssm_params() \
+                + n_attn * (attn_params() - d)
+            total += mixers + self.n_layers * ffn
+            active += mixers + self.n_layers * ffn_active
             return total, active
 
         if self.zyphra:

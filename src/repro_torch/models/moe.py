@@ -5,7 +5,11 @@ Routing is top-k softmax (normalised over the k chosen experts) with a
 fixed per-expert capacity C = ceil(T·k/E · capacity_factor); an assignment
 whose rank among its expert's assignments, in (token, choice) order, is C
 or more is dropped (its combine weight meets a zero row), as in
-Switch/GShard. Tokens are scattered into (E, C, D) buffers, every expert's
+Switch/GShard. So capacity drops an assignment wherever more than C of a
+step's T tokens pick one expert: at decode (T = 32, k = 10, E = 72, C = 6)
+that happens in most steps. With ``MoEConfig.dropless`` C is T, which no
+expert can exceed (a token picks an expert at most once): nothing is ever
+dropped. Tokens are scattered into (E, C, D) buffers, every expert's
 SwiGLU runs as one batched product (``torch.bmm``; the reference's
 ``einsum``s run outside any kernel, so there is no hand-written kernel
 here), and the results are gathered back and weight-summed per token.
@@ -13,7 +17,11 @@ here), and the results are gathered back and weight-summed per token.
 Everything is computed on the device from static shapes: the capacity is a
 Python int of the token count, and there is no ``.item()``, no
 ``nonzero`` and no branch on a device value, so a decode step through this
-layer can be captured as a CUDA graph.
+layer can be captured as a CUDA graph. One exception, outside any decode
+step: a dropless layer over more than ``DROPLESS_STATIC_T`` tokens (a
+prefill, whose E x T rows would not fit beside the weights) reads the
+step's largest per-expert count on the host and sizes C by it, which
+still drops nothing.
 
 Under a mesh, ``moe_apply`` takes the reference's expert-parallel
 branches, each a ``shard_map`` whose routing and dispatch run on local
@@ -39,6 +47,10 @@ from repro_torch.models.config import MoEConfig
 from repro_torch.obs.ranges import profiler_range
 from repro_torch.sharding import rules
 
+# the most tokens over which a dropless layer keeps C = T (static, capture
+# safe); above it C is the step's largest per-expert count, read on the host
+DROPLESS_STATIC_T = 512
+
 
 def route(x2d: torch.Tensor, w_router: torch.Tensor, top_k: int):
     """(weights (T, k) fp32, experts (T, k) int64): the top-k of the fp32
@@ -53,8 +65,19 @@ def route(x2d: torch.Tensor, w_router: torch.Tensor, top_k: int):
 
 
 def _capacity(n_tokens: int, cfg: MoEConfig) -> int:
+    """Assignments an expert takes in a step of ``n_tokens``: all of them
+    when ``dropless``, else ceil(T·k/E · capacity_factor)."""
+    if cfg.dropless:
+        return max(n_tokens, 1)
     c = math.ceil(n_tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor)
     return max(int(c), 1)
+
+
+def _largest_count(experts: torch.Tensor, n_experts: int) -> int:
+    """The most assignments any expert has in ``experts`` (T, k), read on
+    the host: a dropless prefill's capacity."""
+    counts = torch.bincount(experts.reshape(-1), minlength=n_experts)
+    return max(int(counts.max()), 1)
 
 
 def _dispatch_indices(experts: torch.Tensor, n_experts: int,
@@ -118,6 +141,8 @@ def moe_local(x2d: torch.Tensor, params: dict, cfg: MoEConfig
     with profiler_range("moe/route_dispatch"):
         weights, experts = route(x2d, params["router"], cfg.top_k)
         cap = _capacity(t, cfg)
+        if cfg.dropless and t > DROPLESS_STATIC_T:
+            cap = _largest_count(experts, cfg.n_experts)
         slot = _dispatch_indices(experts, cfg.n_experts, cap)
         buf = _dispatch(x2d, slot, cfg.n_experts, cap)
     with profiler_range("moe/experts"):

@@ -23,6 +23,14 @@
            concat(x, token embedding), a GeGLU MLP with the application's
            own low-rank adapter, no residual) whose output, through the
            application's own linear, is added to that Mamba2 layer's input;
+           or, with ``layer_types`` (``granite-4.0-h-small``), a layer
+           pattern given as data: layer i is a Mamba2 layer or a GQA
+           attention block (without RoPE where ``rope`` is off, at the
+           config's softmax scale), as ``layer_types[i]`` says, then its
+           own FFN (``ln_mlp``, the MoE with its dense residual as the
+           shared expert); each branch is multiplied by
+           ``residual_multiplier`` before its residual add, the embedding
+           by ``embedding_multiplier``;
   encdec / audio : whisper — a non-causal encoder over the batch's
            ``frames`` (B, enc_len, D) (the audio frontend is a stub in the
            reference too) plus sinusoidal positions, and a decoder whose
@@ -36,7 +44,9 @@ layouts (``params["layers"]["wq"]`` is (L, D, Hq*hd); windowed dense has
 ``mamba`` (n_super, per, ...), ``tail`` (n_tail, ...) and an unstacked
 ``shared_attn``, or in Zyphra's layout ``layers`` (L, ...), ``blocks``
 (n_mem_blocks, ...) and ``hybrid`` (one adapter and linear an
-application); encdec has ``enc`` (n_enc_layers, ...), ``dec`` (L, ...)
+application; a layer pattern ``ssm`` (Mamba2 layers, ...), ``attn``
+(attention layers, ...) and ``ffn`` (L, ...)); encdec has ``enc``
+(n_enc_layers, ...), ``dec`` (L, ...)
 whose cross-attention leaves carry a ``c`` prefix, and ``ln_enc_final``),
 so
 ``repro_torch.convert.params_from_jax`` loads the reference's parameters
@@ -66,6 +76,7 @@ and the decode step run the plain ops.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any
 
@@ -90,6 +101,8 @@ from repro_torch.sharding import rules, shard
 Params = dict[str, Any]
 
 KINDS = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec", "audio")
+# the mixers of a hybrid's layer pattern (``ModelConfig.layer_types``)
+LAYER_TYPES = ("mamba", "attention")
 # the families of one stack of attention + FFN layers (``layers``)
 DENSE_KINDS = ("dense", "moe", "vlm")
 # the encoder-decoder families (whisper): ``enc`` and ``dec`` stacks
@@ -101,10 +114,12 @@ SSD_IMPLS = ("kernel", "blocked")
 # stack dims of each layer group: dense/ssm "layers" (L,), windowed dense
 # "local" (n_super, global_every - 1) and "global" (n_super,), hybrid
 # "mamba" (n_super, per), "tail" (n_tail,), "shared_attn" unstacked, Zyphra's
-# hybrid "blocks" (n_mem_blocks,) and "hybrid" (applications,), encdec "enc"
-# (n_enc_layers,) and "dec" (L,)
+# hybrid "blocks" (n_mem_blocks,) and "hybrid" (applications,), a layer
+# pattern's "ssm" (Mamba2 layers,), "attn" (attention layers,) and "ffn"
+# (L,), encdec "enc" (n_enc_layers,) and "dec" (L,)
 STACK_DIMS = {"layers": 1, "local": 2, "global": 1, "mamba": 2, "tail": 1,
-              "shared_attn": 0, "blocks": 1, "hybrid": 1, "enc": 1, "dec": 1}
+              "shared_attn": 0, "blocks": 1, "hybrid": 1, "ssm": 1,
+              "attn": 1, "ffn": 1, "enc": 1, "dec": 1}
 # the prefix of a decoder layer's cross-attention leaves (``cwq``, ...)
 CROSS = "c"
 # logical axes of each leaf without its stack dims (the reference's
@@ -152,12 +167,18 @@ class Model(nn.Module):
         if cfg.kind not in KINDS or (
                 cfg.window > 0 and cfg.kind != "dense") or (
                 cfg.kind == "hybrid" and cfg.shared_attn_every <= 0
-                and not cfg.hybrid_layer_ids):
+                and not cfg.hybrid_layer_ids and not cfg.layer_types):
             raise NotImplementedError(
                 f"{cfg.name}: kind={cfg.kind!r}, window={cfg.window} is not "
                 f"ported yet; the port runs {KINDS}, a window on dense only "
                 "(ROADMAP Queue A: windowed moe/vlm/encdec, which no "
                 "reference config has)")
+        if cfg.layer_types and (len(cfg.layer_types) != cfg.n_layers or
+                                set(cfg.layer_types) - set(LAYER_TYPES)
+                                or cfg.moe is None):
+            raise ValueError(f"{cfg.name}: layer_types must give one of "
+                             f"{LAYER_TYPES} for each of its {cfg.n_layers} "
+                             "layers, each followed by the MoE of moe")
         if cfg.ssd_impl not in SSD_IMPLS:
             raise ValueError(f"unknown ssd_impl {cfg.ssd_impl!r}; expected "
                              f"one of {SSD_IMPLS}")
@@ -225,6 +246,14 @@ class Model(nn.Module):
             out.update({k: dense[k] for k in ("w_gate", "w_up", "w_down")})
         return out
 
+    def _ffn_shapes(self, stack: tuple) -> dict[str, tuple]:
+        """A layer pattern's FFN leaves: ``ln_mlp``, then the MoE's router
+        and experts with, under ``dense_residual`` (the shared expert), the
+        dense SwiGLU of width ``d_ff``."""
+        moe = self._moe_shapes(stack)
+        return {k: v for k, v in moe.items()
+                if k not in ("ln_attn", "wq", "wk", "wv", "wo")}
+
     def _mamba_shapes(self, stack: tuple) -> dict[str, tuple]:
         c = self.cfg
         s, d = c.ssm, c.d_model
@@ -264,6 +293,11 @@ class Model(nn.Module):
             out["layers"] = self._attn_mlp_shapes((c.n_layers,))
         elif c.kind == "ssm":
             out["layers"] = self._mamba_shapes((c.n_layers,))
+        elif c.patterned:
+            n_attn = c.layer_types.count("attention")
+            out["ssm"] = self._mamba_shapes((c.n_layers - n_attn,))
+            out["attn"] = self._attn_shapes((n_attn,))
+            out["ffn"] = self._ffn_shapes((c.n_layers,))
         elif c.zyphra:
             out["layers"] = self._mamba_shapes((c.n_layers,))
             out["blocks"] = self._attn_mlp_shapes((c.n_mem_blocks,))
@@ -364,25 +398,28 @@ class Model(nn.Module):
 
     # ------------------------------------------------------ shared pieces
     def _attn_branch(self, p, x, sin, cos, window, fused):
-        """Causal self-attention with RoPE over the full sequence, before
+        """Causal self-attention with RoPE (none where ``rope`` is off:
+        ``sin`` and ``cos`` are then None) over the full sequence, before
         its residual add: x (B, S, D) -> (its output (B, S, D), (k, v)),
         for :meth:`_ffn` to add. With ``fused`` (:func:`fused_route`) the
         norm and RoPE take the fused kernels."""
         c = self.cfg
         b, s, _ = x.shape
-        h = _norm(x, p["ln_attn"], c.norm_eps, fused)
-        q = _heads(rules.matmul(h, p["wq"]), s, c.n_heads)
-        k = _heads(rules.matmul(h, p["wk"]), s, c.n_kv_heads)
-        v = _heads(rules.matmul(h, p["wv"]), s, c.n_kv_heads)
-        if fused:
-            q, k = pw.rope_qk_cuda(q, k, sin, cos)
-        else:
-            q = apply_rope(q, sin, cos)
-            k = apply_rope(k, sin, cos)
-        o = context_attention(q, k, v, causal=True, window=window,
-                              impl=c.attn_impl, scale=c.attn_scale)
-        o = rules.pin(o.reshape(b, s, -1))
-        return shard(rules.matmul(o, p["wo"]), "batch", "seq", None), (k, v)
+        with _nope_range(c):
+            h = _norm(x, p["ln_attn"], c.norm_eps, fused)
+            q = _heads(rules.matmul(h, p["wq"]), s, c.n_heads)
+            k = _heads(rules.matmul(h, p["wk"]), s, c.n_kv_heads)
+            v = _heads(rules.matmul(h, p["wv"]), s, c.n_kv_heads)
+            if c.rope and fused:
+                q, k = pw.rope_qk_cuda(q, k, sin, cos)
+            elif c.rope:
+                q = apply_rope(q, sin, cos)
+                k = apply_rope(k, sin, cos)
+            o = context_attention(q, k, v, causal=True, window=window,
+                                  impl=c.attn_impl, scale=c.attn_scale)
+            o = rules.pin(o.reshape(b, s, -1))
+            return shard(rules.matmul(o, p["wo"]), "batch", "seq",
+                         None), (k, v)
 
     def _attn_nocausal(self, p, x, kv_from=None, fused=False):
         """Encoder self-attention, or with ``kv_from`` (the encoder's
@@ -406,12 +443,17 @@ class Model(nn.Module):
 
     def _ffn(self, p, x, y=None, fused=False):
         """The FFN block: SwiGLU, or in a MoE layer the experts (plus the
-        dense SwiGLU of the same normed input with ``dense_residual``).
-        With ``y`` (an attention's output, :meth:`_attn_branch`) the
+        dense SwiGLU of the same normed input with ``dense_residual``: the
+        ``moe/shared`` range). With ``y`` (a mixer's output: an attention's,
+        :meth:`_attn_branch`, or a layer pattern's Mamba2 layer's) the
         block's input is x + y, added in one pass with the norm when
         ``fused`` (:func:`fused_route`); its own residual add stays one
-        add."""
+        add. A ``residual_multiplier`` other than 1 scales y and the FFN's
+        output before their adds."""
         c = self.cfg
+        r = c.residual_multiplier
+        if y is not None and r != 1.0:
+            y = y * r
         if y is None:
             h = _norm(x, p["ln_mlp"], c.norm_eps, fused)
         elif fused:
@@ -426,7 +468,10 @@ class Model(nn.Module):
                               "w_gate": p["moe_gate"], "w_up": p["moe_up"],
                               "w_down": p["moe_down"]}, c.moe)
             if c.moe.dense_residual:
-                y = y + self._dense_mlp(p, h, fused)
+                with profiler_range("moe/shared"):
+                    y = y + self._dense_mlp(p, h, fused)
+        if r != 1.0:
+            y = y * r
         return x + shard(y, "batch", "seq", None)
 
     @staticmethod
@@ -518,8 +563,11 @@ class Model(nn.Module):
         the block's leaves, ``p["app"]`` the application's);
         ``("dec", p, (k_self, v_self, k_cross, v_cross), 0, False)`` for an
         encoder-decoder's decoder layer (self-attention, cross-attention,
-        MLP). The cache views are None without a cache; ``train`` picks
-        each layer's leaves as :meth:`_picker` says."""
+        MLP). A layer pattern's layer is an ``"attn"`` or ``"mamba"`` entry
+        whose ``p`` holds its FFN's leaves besides its mixer's (a Mamba2
+        layer with an FFN: ``ln_mlp`` in ``p``). The cache views are None
+        without a cache; ``train`` picks each layer's leaves as
+        :meth:`_picker` says."""
         c = self.cfg
         pick = self._picker(params, train)
 
@@ -547,6 +595,18 @@ class Model(nn.Module):
             for i in range(c.n_layers):
                 yield ("mamba", pick("layers", i),
                        views(("conv", i), ("state", i)), 0, False)
+        elif c.patterned:
+            n = {"attention": 0, "mamba": 0}
+            for i, t in enumerate(c.layer_types):
+                j = n[t]
+                n[t] += 1
+                ffn = pick("ffn", i)
+                if t == "attention":
+                    yield ("attn", {**pick("attn", j), **ffn},
+                           views(("k", j), ("v", j)), 0, False)
+                else:
+                    yield ("mamba", {**pick("ssm", j), **ffn},
+                           views(("conv", j), ("state", j)), 0, False)
         elif c.zyphra:
             app = {lid: j for j, lid in enumerate(c.hybrid_layer_ids)}
             for i in range(c.n_layers):
@@ -602,7 +662,7 @@ class Model(nn.Module):
         enc = self.encode(params, batch["frames"]) \
             if c.kind in ENCDEC_KINDS else None
         tokens = batch["tokens"]
-        x = embedloss.embed_in(params["embed"], tokens, _dt(c.compute_dtype))
+        x = self._embed(params, tokens)
         if c.kind == "vlm" and "patches" in batch:
             patches = batch["patches"].to(x.dtype)
             x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
@@ -610,8 +670,10 @@ class Model(nn.Module):
         if c.zyphra:          # the shared blocks read the token embeddings
             enc = x
         s = x.shape[1]
-        sin, cos = rope_table(torch.arange(s, device=x.device), c.hd,
-                              c.rope_theta)
+        sin = cos = None
+        if c.rope:
+            sin, cos = rope_table(torch.arange(s, device=x.device), c.hd,
+                                  c.rope_theta)
         train = self._training(params)
         remat = c.remat and train and cache is None
         for kind, p, views, window, rolling in self._layers(params, cache,
@@ -646,7 +708,10 @@ class Model(nn.Module):
             if views is not None:
                 views[0].copy_(conv)
                 views[1].copy_(state)
-            return x + shard(y, "batch", "seq", None)
+            y = shard(y, "batch", "seq", None)
+            if "ln_mlp" in p:             # a layer pattern's: its FFN follows
+                return self._ffn(p, x, y, fused_route(x, p))
+            return x + y
         fused = fused_route(x, p)
         y, kv = self._attn_branch(p, x, sin, cos, window, fused)
         if kind == "dec":
@@ -664,8 +729,26 @@ class Model(nn.Module):
         embedding table, its padding columns masked: the reference's
         ``Model.loss``, for every family."""
         x = self.forward(params, batch)
+        if self.cfg.logits_scaling != 1.0:
+            x = x / self.cfg.logits_scaling     # the logits, divided
         return embedloss.lm_loss(x, params["embed"], batch["labels"],
                                  valid_vocab=self.cfg.vocab)
+
+    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        """The token embeddings (B, S, D) in the compute dtype, times
+        ``embedding_multiplier`` where it is not 1."""
+        c = self.cfg
+        x = embedloss.embed_in(params["embed"], tokens, _dt(c.compute_dtype))
+        return x * c.embedding_multiplier if c.embedding_multiplier != 1.0 \
+            else x
+
+    def logits(self, params: Params, h: torch.Tensor) -> torch.Tensor:
+        """Final hidden states (..., D) -> fp32 logits over the vocab (its
+        padding columns left out), divided by ``logits_scaling``: what
+        :meth:`loss` scores and the greedy head's argmax picks from."""
+        c = self.cfg
+        out = h.float() @ params["embed"][:c.vocab].float().T
+        return out / c.logits_scaling if c.logits_scaling != 1.0 else out
 
     def encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
         """The encoder (whisper): frames (B, T, D) -> its normed output
@@ -750,9 +833,11 @@ class Model(nn.Module):
         (n_tail, B, w, Hkv, hd)); Mamba2 conv inputs (n, B, W-1, di+2N) and
         SSM states (n, B, H, P, N) fp32 (Zyphra's hybrid: one of each a
         layer, and K/V ``k_shared`` (applications, B, S, Hkv, hd) one a
-        shared block's application); an encoder-decoder's self K/V
-        ``k_self`` (L, B, S, Hkv, hd) and cross K/V ``k_cross`` (L, B,
-        enc_len, Hkv, hd) — the reference's leaves and shapes. Given
+        shared block's application; a layer pattern: one of each a Mamba2
+        layer, and K/V (attention layers, B, S, Hkv, hd)); an
+        encoder-decoder's self K/V ``k_self`` (L, B, S, Hkv, hd) and cross
+        K/V ``k_cross`` (L, B, enc_len, Hkv, hd) — the reference's leaves
+        and shapes. Given
         ``params`` and a ``batch`` with ``frames``, an encoder-decoder's
         cross K/V are those of the encoder's output over the frames, as
         the reference's; otherwise zeros."""
@@ -800,6 +885,14 @@ class Model(nn.Module):
         conv = (b, s.conv_width - 1,
                 s.d_inner(c.d_model) + 2 * s.n_groups * s.d_state)
         state = (b, s.n_heads(c.d_model), s.head_dim, s.d_state)
+        if c.patterned:
+            n_attn = c.layer_types.count("attention")
+            cache["conv"] = zeros((c.n_layers - n_attn,) + conv)
+            cache["state"] = zeros((c.n_layers - n_attn,) + state,
+                                   torch.float32)
+            cache["k"] = zeros(kv(n_attn))
+            cache["v"] = zeros(kv(n_attn))
+            return cache
         if c.kind == "ssm" or c.zyphra:
             cache["conv"] = zeros((c.n_layers,) + conv)
             cache["state"] = zeros((c.n_layers,) + state, torch.float32)
@@ -855,7 +948,9 @@ class Model(nn.Module):
         ``CROSS`` prefix): the cache is read only, no RoPE, and every lane
         attends to all S encoder positions (``pos = S - 1``). Without
         ``residual`` (Zyphra's shared block, whose x is the concatenated
-        input) the attention's output alone is returned."""
+        input; a block whose FFN adds it, :meth:`_ffn`) the attention's
+        output alone is returned. Without ``rope`` in the config no
+        position is encoded."""
         c = self.cfg
         b = x.shape[0]
         k_cache, v_cache = cache_kv
@@ -866,20 +961,22 @@ class Model(nn.Module):
         if cross:
             o = decode_attention(q[:, 0], k_cache, v_cache, pos=smax - 1)
             return x + o.reshape(b, 1, -1) @ p[prefix + "wo"]
-        k = _heads(h @ p["wk"], 1, c.n_kv_heads)
-        v = _heads(h @ p["wv"], 1, c.n_kv_heads)
-        # pos is per-slot (B,): each lane rotates and writes at its own
-        # position, so mid-run admissions decode exactly as if solo
-        sin, cos = rope_table(pos[:, None], c.hd, c.rope_theta)
-        q = apply_rope(q, sin, cos)
-        k = apply_rope(k, sin, cos)
-        slot = torch.remainder(pos, smax) if rolling \
-            else torch.clamp(pos, max=smax - 1)
-        _write_lanes(k_cache, k[:, 0], slot)
-        _write_lanes(v_cache, v[:, 0], slot)
-        o = decode_attention(q[:, 0], k_cache, v_cache, pos=pos,
-                             scale=c.attn_scale)
-        o = o.reshape(b, 1, -1) @ p["wo"]
+        with _nope_range(c):
+            k = _heads(h @ p["wk"], 1, c.n_kv_heads)
+            v = _heads(h @ p["wv"], 1, c.n_kv_heads)
+            # pos is per-slot (B,): each lane rotates and writes at its own
+            # position, so mid-run admissions decode exactly as if solo
+            if c.rope:
+                sin, cos = rope_table(pos[:, None], c.hd, c.rope_theta)
+                q = apply_rope(q, sin, cos)
+                k = apply_rope(k, sin, cos)
+            slot = torch.remainder(pos, smax) if rolling \
+                else torch.clamp(pos, max=smax - 1)
+            _write_lanes(k_cache, k[:, 0], slot)
+            _write_lanes(v_cache, v[:, 0], slot)
+            o = decode_attention(q[:, 0], k_cache, v_cache, pos=pos,
+                                 scale=c.attn_scale)
+            o = o.reshape(b, 1, -1) @ p["wo"]
         return x + o if residual else o
 
     def decode_step(self, params: Params, cache, tokens: torch.Tensor):
@@ -887,9 +984,7 @@ class Model(nn.Module):
         updated in place."""
         c = self.cfg
         pos = cache["pos"]
-        x = shard(embedloss.embed_in(params["embed"], tokens[:, None],
-                                     _dt(c.compute_dtype)), "batch", None,
-                  None)
+        x = shard(self._embed(params, tokens[:, None]), "batch", None, None)
         e = x
         for kind, p, views, _, rolling in self._layers(params, cache):
             if kind in ("mamba", "zamba"):
@@ -906,12 +1001,15 @@ class Model(nn.Module):
                                            ssd_state=views[1],
                                            eps=c.norm_eps)
                 views[0].copy_(conv)       # the state is updated in place
-                x = x + y
-            else:
+                x = self._ffn(p, x, y) if "ln_mlp" in p else x + y
+            elif kind == "dec":
                 x = self._attn_decode(p, x, views[:2], pos, rolling)
-                if kind == "dec":
-                    x = self._attn_decode(p, x, views[2:], pos, cross=True)
+                x = self._attn_decode(p, x, views[2:], pos, cross=True)
                 x = self._ffn(p, x)
+            else:
+                x = self._ffn(p, x, self._attn_decode(p, x, views[:2], pos,
+                                                      rolling,
+                                                      residual=False))
         x = rms_norm(x, params["ln_final"], c.norm_eps)
         nxt = embedloss.greedy(x[:, 0], params["embed"], valid_vocab=c.vocab)
         pos.add_(1)
@@ -938,7 +1036,9 @@ def fused_route(x: torch.Tensor, p: dict[str, torch.Tensor]) -> bool:
     the layer's input x (B, S, D) with ``pw.takes`` (CUDA bf16) and its
     parameters ``p``. Which kernels a route takes is the block's to say: a
     dense block all four, Zyphra's shared block only the norms and RoPE
-    (``Model._zamba_block``)."""
+    (``Model._zamba_block``), a block without positional encoding (``rope``
+    off) all but RoPE, a layer pattern's Mamba2 layer the FFN's residual
+    add with its norm and the shared expert's gate."""
     return x.shape[1] > 1 and build.route(pw.takes, x, params=p.values())
 
 
@@ -947,6 +1047,13 @@ def _cache_leaf_axes(name: str, leaf: torch.Tensor) -> tuple:
     its base axes (``CACHE_LEAF_AXES``)."""
     base = CACHE_LEAF_AXES[name.split("_")[0]]
     return (None,) * (leaf.dim() - len(base)) + base
+
+
+def _nope_range(cfg):
+    """The ``attention/nope`` profiler range around an attention without
+    positional encoding (``rope`` off); a null context otherwise."""
+    return profiler_range("attention/nope") if not cfg.rope \
+        else contextlib.nullcontext()
 
 
 def _norm(x, scale, eps, fused):

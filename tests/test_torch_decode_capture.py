@@ -34,11 +34,12 @@ from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.serve.graph import CapturedStep  # noqa: E402
 
 # one smoke config per family: dense, windowed dense (window 16), ssm,
-# hybrid, moe, vlm, encoder-decoder
+# hybrid, moe, vlm, encoder-decoder, and the hybrid's layer pattern given
+# as data (Mamba2 and NoPE attention layers, each with a dropless MoE)
 FAMILIES = {"dense": "stablelm-3b", "windowed": "gemma3-1b",
             "ssm": "mamba2-1.3b", "hybrid": "zamba2-7b",
             "moe": "arctic-480b", "vlm": "internvl2-26b",
-            "encdec": "whisper-small"}
+            "encdec": "whisper-small", "pattern": "granite-4.0-h-small"}
 DTYPES = ["float32", "bfloat16"]
 B, CACHE = 2, 24
 # ops that read a device value on the host, or build a tensor from host

@@ -55,23 +55,27 @@ def _err(t, j) -> float:
     return float(np.abs(t.float().numpy() - np.asarray(j, np.float32)).max())
 
 
-# the port's own fields, beyond the reference's (Zyphra's hybrid layout,
-# models/config.py), at these defaults in every architecture both packages
-# have; and the architectures only the port has (tests/test_torch_zamba2.py)
+# the port's own fields, beyond the reference's (Zyphra's hybrid layout and
+# the layer pattern given as data, models/config.py), at these defaults in
+# every architecture both packages have; and the architectures only the
+# port has (tests/test_torch_zamba2.py, tests/test_torch_granite.py)
 PORT_ONLY = {"hybrid_layer_ids": (), "n_mem_blocks": 1, "attn_in": 0,
-             "adapter_rank": 0}
+             "adapter_rank": 0, "layer_types": (), "rope": True,
+             "softmax_scale": 0.0, "embedding_multiplier": 1.0,
+             "residual_multiplier": 1.0, "logits_scaling": 1.0}
 SSM_PORT_ONLY = {"n_groups": 1, "conv_bias": False}
-PORT_ARCHS = ["zamba2-7b-instruct"]
+MOE_PORT_ONLY = {"dropless": False}
+PORT_ARCHS = ["granite-4.0-h-small", "zamba2-7b-instruct"]
 
 
 def _value(v):
-    """A config field compared across the packages (their SSMConfig
-    dataclasses are distinct types; the port's own SSM fields are left
-    out)."""
+    """A config field compared across the packages (their SSMConfig and
+    MoEConfig dataclasses are distinct types; the port's own SSM and MoE
+    fields are left out)."""
     if not dataclasses.is_dataclass(v):
         return v
     return {k: x for k, x in dataclasses.asdict(v).items()
-            if k not in SSM_PORT_ONLY}
+            if k not in SSM_PORT_ONLY and k not in MOE_PORT_ONLY}
 
 
 def test_registry_and_config_copy():
@@ -86,6 +90,9 @@ def test_registry_and_config_copy():
             if ours.ssm is not None:
                 assert {k: getattr(ours.ssm, k) for k in SSM_PORT_ONLY} \
                     == SSM_PORT_ONLY
+            if ours.moe is not None:
+                assert {k: getattr(ours.moe, k) for k in MOE_PORT_ONLY} \
+                    == MOE_PORT_ONLY
             diff = {f.name for f in dataclasses.fields(ours)
                     if f.name not in PORT_ONLY and (
                         f.name not in ref_fields
